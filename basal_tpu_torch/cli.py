@@ -1,0 +1,135 @@
+"""basal-compatible command line of the PyTorch port.
+
+    python -m basal_tpu_torch.cli -a reads.fq -d ref.fa -M A:G -S 1 -o out.sam
+
+Takes basal_tpu's flags (its parser is reused) and runs the single-end
+aligner on the device named by ``BASAL_TPU_TORCH_DEVICE`` (default
+``cuda``; ``cpu`` runs the kernels' plain versions).  Paired-end (``-b``)
+is not ported yet.
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+
+from basal_tpu.cli import _usage, parse_args
+from basal_tpu.config import MAXGAPS, AlignParams
+
+
+def params_from_args(argv, opts, flags) -> AlignParams:
+    """AlignParams of parsed flags (the mapping of basal_tpu.cli.main)."""
+    kw = dict(conversion=opts["M"])
+    if "s" in opts:
+        kw["seed_size"] = int(opts["s"])
+    if "I" in opts:
+        kw["index_interval"] = min(int(opts["I"]), 16)
+    # SetSeedSize recomputes min_read_size with the index_interval value at
+    # the time -s appears on the command line (argument-order dependence in
+    # the reference's option parser); without -s the constructor-time value
+    # 15 stands (see AlignParams.min_read_size_quirk)
+    cur_i, cur_min = 4, 15
+    for j, a in enumerate(argv):
+        if a == "-I" and j + 1 < len(argv):
+            cur_i = min(int(argv[j + 1]), 16)
+        elif a.startswith("-I="):
+            cur_i = min(int(a[3:]), 16)
+        elif a == "-s" and j + 1 < len(argv):
+            cur_min = int(argv[j + 1]) + cur_i - 1
+        elif a.startswith("-s="):
+            cur_min = int(a[3:]) + cur_i - 1
+        elif a == "-D" or a.startswith("-D="):
+            cur_i = 1
+    kw["min_read_size_quirk"] = cur_min
+    if "k" in opts:
+        kw["max_kmer_ratio"] = float(opts["k"])
+    if "v" in opts:
+        kw["max_snp_num"] = AlignParams.parse_v(float(opts["v"]))
+    if "g" in opts:
+        kw["gap"] = min(int(opts["g"]), MAXGAPS)
+    if "w" in opts:
+        kw["max_num_hits"] = int(opts["w"])
+    if "r" in opts:
+        kw["report_repeat_hits"] = int(opts["r"])
+    if "n" in opts:
+        kw["chains"] = int(opts["n"])
+    if "S" in opts:
+        kw["randseed"] = int(opts["S"])
+    if "m" in opts:
+        kw["min_insert"] = int(opts["m"])
+    if "x" in opts:
+        kw["max_insert"] = int(opts["x"])
+    if "q" in opts:
+        kw["qual_threshold"] = int(opts["q"])
+    if "z" in opts:
+        kw["zero_qual"] = int(opts["z"])
+    if "f" in opts:
+        kw["max_ns"] = int(opts["f"])
+    if "L" in opts:
+        kw["max_readlen"] = int(opts["L"])
+    if "B" in opts:
+        kw["read_start"] = max(int(opts["B"]), 1)
+    if "E" in opts:
+        kw["read_end"] = int(opts["E"])
+    if "p" in opts:
+        kw["num_threads"] = int(opts["p"])
+    if "V" in opts:
+        kw["verbose_level"] = int(opts["V"])
+    if "A" in opts:
+        kw["adapters"] = tuple(opts["A"])
+    if "D" in opts:
+        kw["digestion_site"] = opts["D"]
+    if "b" in opts:
+        kw["pairend"] = True
+    kw["out_ref"] = "R" in flags
+    kw["nt3"] = "3" in flags
+    kw["sam_header"] = "H" not in flags
+    kw["out_unmap"] = "u" in flags
+    kw["n_mis"] = "N" in flags
+    return AlignParams(**kw)
+
+
+def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if not argv:
+        _usage()
+    command_line = "basal-tpu " + " ".join(argv)
+    opts, flags = parse_args(argv)
+    if "M" not in opts:
+        sys.stderr.write("\n-M option is required\n")
+        sys.exit(1)
+    if "a" not in opts or "d" not in opts:
+        sys.stderr.write("-a and -d are required\n")
+        sys.exit(1)
+    params = params_from_args(argv, opts, flags)
+    if params.pairend:
+        raise SystemExit("basal_tpu_torch: paired-end alignment (-b) is not "
+                         "yet ported; see ROADMAP.md")
+
+    verbose = params.verbose_level
+
+    def log(msg, level=1):
+        if level <= verbose:
+            sys.stderr.write(f"[BASAL @{time.ctime()}] {msg}\n")
+
+    from .align.pipeline import run_single_end
+
+    def runner(fh):
+        return run_single_end(params, opts["d"], opts["a"], out_fh=fh,
+                              command_line=command_line, log=log)
+
+    out_path = opts.get("o")
+    if out_path is None:
+        runner(getattr(sys.stdout, "buffer", sys.stdout))
+        sys.stdout.flush()
+    elif out_path.endswith(".bam"):
+        from basal_tpu.toolkit.bamio import BamWriter
+        with BamWriter(out_path) as bw:
+            runner(bw)
+    else:
+        with open(out_path, "wb") as fh:
+            runner(fh)
+
+
+if __name__ == "__main__":
+    main()
