@@ -5,7 +5,8 @@ engine: encode, seed schedule, candidate groups, replay, SAM formatter) are
 ``basal_tpu``'s, used as they are; this module owns what touches the device:
 
   host:   batch read -> encode -> seed schedule -> candidate groups
-  device: one int32 blob per wave -> CUDA count kernel (ops.extend_cuda)
+  device: one int32 blob per wave -> CUDA count kernel, or with -g the
+          CUDA gap kernel (ops.extend_cuda)
   host:   scan replay -> SAM bytes
 
 The device is resolved once per aligner from ``BASAL_TPU_TORCH_DEVICE``
@@ -35,7 +36,8 @@ from basal_tpu.reads.encode import EncodedBatch
 from basal_tpu.reads.io import open_reads
 from basal_tpu.align.sam import sam_header
 
-from ..ops.extend_cuda import extend_counts_blob
+from ..ops.extend import K_POS
+from ..ops.extend_cuda import extend_counts_blob, extend_gap_blob
 
 #: rowmeta's exception-row field is 12 bits (index + 1): a wave with more
 #: N-containing rows is split at row boundaries (split_waves)
@@ -153,27 +155,29 @@ def split_waves(enc: EncodedBatch, row: np.ndarray):
 
 class _Wave(NamedTuple):
     C: int
-    counts: torch.Tensor       # u8 [C]: pinned host copy on CUDA
-    event: Optional[object]    # torch.cuda.Event behind the copy
+    out: tuple                 # counts u8 [C] (gapped: + pos0, pos1 i16);
+                               # pinned host copies on CUDA
+    event: Optional[object]    # torch.cuda.Event behind the copies
     t0: float
     keep: tuple                # buffers referenced until the fetch
 
 
 class TorchDeviceContext:
-    """Holds the packed reference on the device and runs the count kernel.
+    """Holds the packed reference on the device and runs the count kernel,
+    or with ``params.gap > 0`` the gap kernel.
 
-    The same surface as basal_tpu's DeviceContext that SingleEndAligner
-    uses: extend_async / fetch / extend, cost_per_cand, stalls, up_bytes /
-    up_waves, CHUNK.  Ungapped only; the fetch watchdog is not ported (on a
-    local card it would hide a device failure), so ``stalls`` stays 0."""
+    The same surface as basal_tpu's DeviceContext that the SE and PE
+    aligners use: extend_async / fetch / extend, cost_per_cand, stalls,
+    up_bytes / up_waves, CHUNK; ``down_bytes`` counts the result bytes
+    copied back.  The fetch watchdog is not ported (on a local card it
+    would hide a device failure), so ``stalls`` stays 0.
+
+    A gapped wave of CHUNK candidates holds (1 + 28 + 56*gap) bytes per
+    candidate of pinned host memory until it is fetched: 826 MB at gap 3."""
 
     CHUNK = 4 << 20
 
     def __init__(self, ref: PackedReference, params: AlignParams, device):
-        if params.gap > 0:
-            raise NotImplementedError(
-                "gapped device extension (-g with BASAL_TPU_HOST_EVAL=0) is "
-                "not yet ported to basal_tpu_torch; see ROADMAP.md")
         self.params = params
         self.device = resolve_device(device)
         self.nw = ref.ref32.shape[1]
@@ -187,6 +191,7 @@ class TorchDeviceContext:
         self._meas_skip = 1
         self.up_bytes = 0
         self.up_waves = 0
+        self.down_bytes = 0
 
     @property
     def cost_per_cand(self):
@@ -212,40 +217,53 @@ class TorchDeviceContext:
         """Upload and launch every wave without waiting for the device."""
         t0 = time.time()
         cuda = self.device.type == "cuda"
+        gap = self.params.gap
         waves = []
         for blob, C, U, E in self.wave_blobs(enc, loc, plane, row):
             self.up_bytes += blob.nbytes
             self.up_waves += 1
+            shape = dict(mode=self.mode, W=enc.W, nw=self.nw, C=C, U=U, E=E)
             with torch.cuda.device(self.device) if cuda else nullcontext():
                 dblob, staging = blob_to_device(blob, self.device)
-                counts = extend_counts_blob(
-                    self.ref32, dblob, mode=self.mode, W=enc.W, nw=self.nw,
-                    C=C, U=U, E=E)
+                if gap:
+                    out = extend_gap_blob(self.ref32, dblob, gap=gap, **shape)
+                else:
+                    out = (extend_counts_blob(self.ref32, dblob, **shape),)
+                self.down_bytes += sum(t.numel() * t.element_size()
+                                       for t in out)
                 if not cuda:
-                    waves.append(_Wave(C, counts, None, t0, ()))
+                    waves.append(_Wave(C, out, None, t0, ()))
                     continue
-                host = torch.empty(C, dtype=torch.uint8, pin_memory=True)
-                host.copy_(counts, non_blocking=True)
+                host = tuple(torch.empty(t.shape, dtype=t.dtype,
+                                         pin_memory=True) for t in out)
+                for h, t in zip(host, out):
+                    h.copy_(t, non_blocking=True)
                 event = torch.cuda.Event()
                 event.record()
-            waves.append(_Wave(C, host, event, t0, (staging, dblob, counts)))
+            waves.append(_Wave(C, host, event, t0, (staging, dblob, out)))
         return waves
 
     def fetch(self, waves: List[_Wave]):
-        """Wait for the waves; (counts int32 [sum C], None, None)."""
+        """Wait for the waves; (counts, pos0, pos1) as int32 arrays over all
+        of them, the position lists None when ungapped (the contract of
+        basal_tpu's DeviceContext.fetch)."""
         outs = []
         for w in waves:
             if w.event is not None:
                 w.event.synchronize()
-            outs.append(w.counts.numpy().astype(np.int32))
+            outs.append([t.numpy().astype(np.int32) for t in w.out])
             if w.C >= 16384:
                 if self._meas_skip:
                     self._meas_skip -= 1
                 else:
                     self.meas_t += time.time() - w.t0
                     self.meas_n += w.C
-        counts = np.concatenate(outs) if outs else np.zeros(0, np.int32)
-        return counts, None, None
+        gap = self.params.gap
+        if not outs:
+            tails = [()] + ([(K_POS,), (2 * gap, K_POS)] if gap else [])
+            outs = [[np.zeros((0,) + t, np.int32) for t in tails]]
+        res = [np.concatenate(parts) for parts in zip(*outs)]
+        return tuple(res) if gap else (res[0], None, None)
 
     def extend(self, enc: EncodedBatch, loc, plane, row):
         return self.fetch(self.extend_async(enc, loc, plane, row))

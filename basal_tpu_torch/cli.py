@@ -2,10 +2,12 @@
 
     python -m basal_tpu_torch.cli -a reads.fq -d ref.fa -M A:G -S 1 -o out.sam
 
-Takes basal_tpu's flags (its parser is reused) and runs the single-end
-aligner on the device named by ``BASAL_TPU_TORCH_DEVICE`` (default
-``cuda``; ``cpu`` runs the kernels' plain versions).  Paired-end (``-b``)
-is not ported yet.
+    python -m basal_tpu_torch.cli -a r1.fq -b r2.fq -d ref.fa -M C:T -S 1 -o out.sam
+
+Takes basal_tpu's flags (its parser is reused) and runs the single-end or,
+with ``-b``, the paired-end aligner on the device named by
+``BASAL_TPU_TORCH_DEVICE`` (default ``cuda``; ``cpu`` runs the kernels'
+plain versions).
 """
 
 from __future__ import annotations
@@ -102,21 +104,24 @@ def main(argv=None):
         sys.stderr.write("-a and -d are required\n")
         sys.exit(1)
     params = params_from_args(argv, opts, flags)
-    if params.pairend:
-        raise SystemExit("basal_tpu_torch: paired-end alignment (-b) is not "
-                         "yet ported; see ROADMAP.md")
-
     verbose = params.verbose_level
 
     def log(msg, level=1):
         if level <= verbose:
             sys.stderr.write(f"[BASAL @{time.ctime()}] {msg}\n")
 
-    from .align.pipeline import run_single_end
+    if params.pairend:
+        from .pairs.pipeline import run_pair_end
 
-    def runner(fh):
-        return run_single_end(params, opts["d"], opts["a"], out_fh=fh,
-                              command_line=command_line, log=log)
+        def runner(fh):
+            return run_pair_end(params, opts["d"], opts["a"], opts["b"],
+                                out_fh=fh, command_line=command_line, log=log)
+    else:
+        from .align.pipeline import run_single_end
+
+        def runner(fh):
+            return run_single_end(params, opts["d"], opts["a"], out_fh=fh,
+                                  command_line=command_line, log=log)
 
     out_path = opts.get("o")
     if out_path is None:

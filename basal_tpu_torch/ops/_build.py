@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-``nvcc`` compiles every ``basal_tpu_torch/csrc/*.cu`` into one shared
-library with a plain C interface, loaded with ``ctypes``.  The build runs at
+``nvcc`` compiles every ``basal_tpu_torch/csrc/*.cu`` (one process per
+source, all started together) and links them into one shared library with
+a plain C interface, loaded with ``ctypes``.  The build runs at
 first use, into ``build/basal_tpu_torch/<hash>/`` at the root of the
 checkout, keyed by a hash of the sources and the flags, so a changed source
 is rebuilt and an unchanged one is loaded as it is.  Nothing is built or
@@ -23,7 +24,7 @@ _PKG = Path(__file__).resolve().parents[1]
 SRC_DIR = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "basal_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 LIB_NAME = "libbasal_tpu_torch_kernels.so"
 
 _lock = threading.Lock()
@@ -54,16 +55,38 @@ def library_path() -> Path:
     return BUILD_ROOT / h.hexdigest()[:16] / LIB_NAME
 
 
+def _run_all(cmds):
+    """Run the commands side by side; wait for every one, then raise with
+    the output of the first that failed."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    failed = None
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0 and failed is None:
+            failed = (cmd, proc.returncode, out)
+    if failed is not None:
+        cmd, rc, out = failed
+        raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}")
+
+
 def _build(so: Path) -> None:
     so.parent.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f".{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{' '.join(cmd)}\n"
-                           f"{r.stdout}{r.stderr}")
-    os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    srcs = [s for s in _sources() if s.suffix == ".cu"]
+    objs = [so.with_name(f".{s.stem}.{tag}.o") for s in srcs]
+    tmp = so.with_name(f".{so.name}.{tag}")
+    try:
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+                  for s, o in zip(srcs, objs)])
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                   *map(str, objs)]])
+        os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
+    finally:
+        for f in objs + [tmp]:
+            f.unlink(missing_ok=True)
 
 
 def load() -> ctypes.CDLL:
@@ -79,5 +102,7 @@ def load() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.bt_count_blob.argtypes = [p, i, p, p, i, i, i, i, i, p]
         lib.bt_count_blob.restype = i
+        lib.bt_gap_blob.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, p]
+        lib.bt_gap_blob.restype = i
         _lib = lib
         return lib

@@ -1,27 +1,35 @@
-"""Ungapped candidate extension: the plain PyTorch version of the count core.
+"""Candidate extension: the plain PyTorch versions of the count and gap cores.
 
-PyTorch counterpart of ``basal_tpu.ops.extend`` for ``gap == 0``.  Per
-candidate (ref plane p, concatenated base loc, read-chain row r):
+PyTorch counterpart of ``basal_tpu.ops.extend``.  Per candidate (ref plane
+p, concatenated base loc, read-chain row r):
 
-  1. gather the W+1 reference words at ``p*nw + (loc >> 4)``,
+  1. gather the reference window words at ``p*nw + (loc >> 4)`` (W+1
+     words; gapped: W+3 words from one word earlier),
   2. funnel-shift them onto the read word grid by ``2*(loc & 15)``,
   3. apply the conversion-mask algebra and count the 2-bit mismatch lanes,
   4. add the row's N-count and clamp to 255 (u8 result).
 
-u32 words are int64 values in [0, 2**32) (see ``ops.bitops``).  This is the
-CPU path of ``ops.extend_cuda.extend_counts_blob`` and the version that the
-CUDA kernel is compared with on the card.  The gapped extension (position
-lists) is not ported yet.
+Gapped (``gap > 0``) it also returns the first K_POS mismatch positions of
+the main alignment in ascending read order (``pos0``) and, for each of the
+2*gap alignments shifted by -1, +1, -2, +2, ..., the first K_POS positions
+as distance from the read end (``pos1``); both are masked by the length
+mask and padded with the read length.
+
+u32 words are int64 values in [0, 2**32) (see ``ops.bitops``).  These are
+the CPU paths of ``ops.extend_cuda.extend_counts_blob`` and
+``extend_gap_blob`` and the versions that the CUDA kernels are compared
+with on the card.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .bitops import (M32, mismatch_words_multiway, mismatch_words_nt3,
-                     mismatch_words_oneway, u32, xm32)
+from .bitops import (M32, lane_flags, mismatch_words_multiway,
+                     mismatch_words_nt3, mismatch_words_oneway, u32, xm32)
 
 MODES = ("oneway", "multiway", "nt3")
+K_POS = 14  # MAXSNPS - 1: the most mismatch positions a gapped scan reads
 
 
 def _align_words(R: torch.Tensor, off: torch.Tensor, sh2: torch.Tensor,
@@ -54,8 +62,25 @@ def candidate_rows(row_off: torch.Tensor, C: int) -> torch.Tensor:
     return row.clamp(0, row_off.shape[0] - 2)
 
 
+def _first_positions(flagw: torch.Tensor, fill: torch.Tensor, W: int,
+                     reverse: bool) -> torch.Tensor:
+    """First K_POS mismatch lane positions of [C, W] flag words: ascending
+    read position, or (``reverse``) ascending distance from the read end,
+    reported as fill-1-p.  ``fill`` [C] is the read length and pads short
+    lists.  Positions are unique within a row and the pads equal, so the
+    K smallest scores in order are ``sorted()[:K]``.  Returns int32."""
+    bits = lane_flags(flagw)
+    shifts = torch.arange(30, -2, -2, device=flagw.device)  # lane 0 first
+    lane_bits = ((bits[:, :, None] >> shifts) & 1).reshape(-1, W * 16)
+    lane_idx = torch.arange(W * 16, device=flagw.device)[None, :]
+    pos = fill[:, None] - 1 - lane_idx if reverse else lane_idx
+    score = torch.where(lane_bits != 0, pos, fill[:, None]).to(torch.int32)
+    return torch.topk(score, K_POS, dim=1, largest=False, sorted=True).values
+
+
 def _extend_core(ref32, loc, plane, row_off, base, valid, mread, ncnt, *,
-                 mode: str, W: int, nw: int) -> torch.Tensor:
+                 mode: str, W: int, nw: int, gap: int = 0, lenmask=None,
+                 readlen=None):
     """Mismatch counts of C candidates against the packed reference.
 
     ref32:   int32 [2*nw] (fwd plane then RC plane)
@@ -64,22 +89,42 @@ def _extend_core(ref32, loc, plane, row_off, base, valid, mread, ncnt, *,
     row_off: int64 [U+1] candidate offsets of the active rows
     base/valid/mread: int64 [U, W] u32 read planes (mread multiway only)
     ncnt:    int64 [U] N-count additive term (-N)
+    lenmask, readlen: int64 [U, W] / [U], gapped only
 
-    Returns u8 [C].  Gather indices are clamped to the reference like the
-    CUDA kernel's; the reference's margins keep real candidates inside."""
+    Returns u8 [C], and with ``gap > 0`` also pos0 i16 [C, K_POS] and pos1
+    i16 [C, 2*gap, K_POS].  Gather indices are clamped to the reference
+    like the CUDA kernels'; the reference's margins keep real candidates
+    inside."""
     C = loc.shape[0]
     row = candidate_rows(row_off, C)
-    gidx = plane * nw + (loc >> 4)
-    idx = gidx[:, None] + torch.arange(W + 1, device=loc.device)[None, :]
-    R = u32(ref32[idx.clamp(0, ref32.shape[0] - 1)])        # [C, W+1]
+    wg = W + 3 if gap else W + 1
+    k0 = (loc >> 4) - (1 if gap else 0)
+    idx = (plane * nw + k0)[:, None] + torch.arange(wg, device=loc.device)
+    R = u32(ref32[idx.clamp(0, ref32.shape[0] - 1)])        # [C, wg]
     sh2 = (loc & 15) << 1
-    A = _align_words(R, torch.zeros_like(loc), sh2, W)
+    A = _align_words(R, torch.full_like(loc, 1 if gap else 0), sh2, W)
     b = base[row]
     v = valid[row]
     mr = mread[row] if mode == "multiway" else None
     flags = _rule_flags(mode, b, A, mr)
     counts = ncnt[row] + xm32(flags & v).sum(dim=1)
-    return counts.clamp(max=255).to(torch.uint8)
+    counts8 = counts.clamp(max=255).to(torch.uint8)
+    if not gap:
+        return counts8
+
+    lm = lenmask[row]
+    L = readlen[row]
+    pos0 = _first_positions(flags & lm, L, W, reverse=False)
+    pos1 = []
+    for tt in range(1, 2 * gap + 1):
+        t = (tt + 1) // 2
+        loc_s = loc + (t if tt % 2 == 0 else -t)    # odd -> -t, even -> +t
+        off_s = (loc_s >> 4) - k0                   # 0, 1 or 2
+        A_s = _align_words(R, off_s, (loc_s & 15) << 1, W)
+        flags_s = _rule_flags(mode, b, A_s, mr)
+        pos1.append(_first_positions(flags_s & lm, L, W, reverse=True))
+    return (counts8, pos0.to(torch.int16),
+            torch.stack(pos1, dim=1).to(torch.int16))
 
 
 def derive_lenmask(readlen: torch.Tensor, W: int) -> torch.Tensor:
@@ -132,9 +177,12 @@ def carve_blob(blob: torch.Tensor, *, mode: str, W: int, C: int, U: int,
 
 
 def extend_kernel_blob(ref32: torch.Tensor, blob: torch.Tensor, *, mode: str,
-                       W: int, nw: int, C: int, U: int, E: int) -> torch.Tensor:
-    """Ungapped counts u8 [C] of one wave blob (plain PyTorch)."""
-    (loc, plane, row_off, base, valid, mread, _lm, ncnt,
-     _rl) = carve_blob(blob, mode=mode, W=W, C=C, U=U, E=E)
+                       W: int, nw: int, C: int, U: int, E: int, gap: int = 0):
+    """One wave blob through the plain core: counts u8 [C], and with
+    ``gap > 0`` the tuple (counts, pos0 i16 [C, K_POS], pos1 i16
+    [C, 2*gap, K_POS])."""
+    (loc, plane, row_off, base, valid, mread, lm, ncnt,
+     rl) = carve_blob(blob, mode=mode, W=W, C=C, U=U, E=E)
     return _extend_core(ref32, loc, plane, row_off, base, valid, mread, ncnt,
-                        mode=mode, W=W, nw=nw)
+                        mode=mode, W=W, nw=nw, gap=gap, lenmask=lm,
+                        readlen=rl)

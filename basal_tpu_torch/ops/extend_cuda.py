@@ -1,12 +1,19 @@
-"""Ungapped count core on the card: the wrapper of the CUDA count kernel.
+"""Count and gap cores on the card: the wrappers of the CUDA kernels.
 
-``extend_counts_blob`` takes the reference words and one wave blob (layout:
-``ops.extend.carve_blob``) and returns u8 mismatch counts.  On CUDA tensors
-it launches ``csrc/count_kernel.cu`` on the current stream and never falls
-back: a build or launch failure raises.  On CPU tensors it runs the plain
-version, ``ops.extend.extend_kernel_blob``.  It replaces the TPU path
-``extend_counts_pallas_blob`` -> ``carve_blob`` + XLA gather (``_counts_core``)
--> Pallas ``_count_kernel`` of ``basal_tpu/ops/extend_pallas.py``.
+Both take the reference words and one wave blob (layout:
+``ops.extend.carve_blob``).  On CUDA tensors they launch their kernel on the
+current stream and never fall back: a build or launch failure raises.  On
+CPU tensors they run the plain version, ``ops.extend.extend_kernel_blob``.
+
+- ``extend_counts_blob`` returns u8 mismatch counts through
+  ``csrc/count_kernel.cu``.  It replaces the TPU path
+  ``extend_counts_pallas_blob`` -> ``carve_blob`` + XLA gather
+  (``_counts_core``) -> Pallas ``_count_kernel`` of
+  ``basal_tpu/ops/extend_pallas.py``.
+- ``extend_gap_blob`` returns the counts and the pos0 / pos1 mismatch
+  position lists of the gapped scan through ``csrc/gap_kernel.cu``.  It
+  replaces ``extend_gap_pallas_blob`` -> ``carve_blob`` + XLA gather
+  (``_gap_core``) -> Pallas ``_gap_kernel`` + ``_positions_block``.
 """
 
 from __future__ import annotations
@@ -16,9 +23,10 @@ import threading
 import torch
 
 from . import _build
-from .extend import MODES, extend_kernel_blob
+from .extend import K_POS, MODES, extend_kernel_blob
 
-_MODE_IDS = {m: i for i, m in enumerate(MODES)}  # matches count_kernel.cu
+_MODE_IDS = {m: i for i, m in enumerate(MODES)}  # matches both kernels
+MAX_W = 30  # words of a 480-base read: gap_kernel.cu's largest window
 _count_lock = threading.Lock()
 
 
@@ -78,3 +86,40 @@ def extend_counts_blob(ref32: torch.Tensor, blob: torch.Tensor, *, mode: str,
 
 #: kernel launches made by extend_counts_blob (CPU calls are not counted)
 extend_counts_blob.launches = 0
+
+
+def extend_gap_blob(ref32: torch.Tensor, blob: torch.Tensor, *, mode: str,
+                    gap: int, W: int, nw: int, C: int, U: int, E: int):
+    """(counts u8 [C], pos0 i16 [C, K_POS], pos1 i16 [C, 2*gap, K_POS]) of
+    one gapped wave (see module docstring)."""
+    _check(ref32, blob, mode, W, nw, C, U, E)
+    if not 1 <= gap <= 3 or W > MAX_W:
+        raise ValueError(f"bad gapped wave shape gap={gap} W={W} (want gap "
+                         f"1..3, W <= {MAX_W})")
+    dev = blob.device
+    if dev.type == "cpu":
+        return extend_kernel_blob(ref32, blob, mode=mode, W=W, nw=nw, C=C,
+                                  U=U, E=E, gap=gap)
+    if dev.type != "cuda":
+        raise ValueError(f"no gap kernel for device {dev}")
+    cnt = torch.empty(C, dtype=torch.uint8, device=dev)
+    pos0 = torch.empty((C, K_POS), dtype=torch.int16, device=dev)
+    pos1 = torch.empty((C, 2 * gap, K_POS), dtype=torch.int16, device=dev)
+    if C == 0:
+        return cnt, pos0, pos1
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.bt_gap_blob(ref32.data_ptr(), ref32.numel(),
+                              blob.data_ptr(), cnt.data_ptr(),
+                              pos0.data_ptr(), pos1.data_ptr(), C, U, W, nw,
+                              gap, _MODE_IDS[mode], stream)
+    if err != 0:
+        raise RuntimeError(f"gap kernel launch failed: cudaError {err}")
+    with _count_lock:
+        extend_gap_blob.launches += 1
+    return cnt, pos0, pos1
+
+
+#: kernel launches made by extend_gap_blob (CPU calls are not counted)
+extend_gap_blob.launches = 0

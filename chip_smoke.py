@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's single-end main path once on an NVIDIA GPU.
+"""Run the PyTorch port's alignment paths once on an NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -7,15 +7,27 @@ Phases (any failure raises and the script exits non-zero):
   0. setup: a CUDA card must be present; prints its nvidia-smi name and
      power limit and the torch / CUDA versions;
   1. build: nvcc builds the CUDA kernels from basal_tpu_torch/csrc;
-  2. kernel vs plain version on the card: real waves of encoded reads
-     (64-150 bp, some with Ns) under C:T, A:CGT, C:T -3 and A:G -N must
-     equal the plain PyTorch version exactly; then both are timed at
-     C = 2^20 candidates, W = 7 words (100 bp), U = 8192 rows;
+  2. kernels vs plain versions on the card: every wave of a real batch
+     must equal the plain PyTorch version exactly.  Count kernel: reads of
+     64-150 bp, some with Ns, under C:T, A:CGT, C:T -3 and A:G -N.  Gap
+     kernel: the same with planted deletions and insertions, under T:- -g 3,
+     C:T -g 1, A:CGT -g 2 and C:T -3 -g 2.  Then each kernel and its plain
+     version are timed at C = 2^20 candidates, W = 7 words (100 bp),
+     U = 8192 rows (the gap kernel at gap 3);
   3. main path: 200k 100 bp A:G reads against a 50 Mbp random reference
      through basal_tpu_torch's run_single_end with every wave forced onto
      the card (BASAL_TPU_HOST_EVAL=0); the SAM must be byte-identical to
      the run that evaluates every candidate with the C++ host evaluator;
+  3b. gapped single-end: 200k 100 bp BID-seq reads (-M T:- -g 3) the same
+     way, through the gap kernel; then the device-forced run once more
+     under torch.profiler for the card's busy time and position download;
+  3c. paired-end: 100k pairs of 100 bp through run_pair_end, -M C:T (count
+     kernel) and -M C:T -g 2 with planted deletions (gap kernel), each
+     device-forced against the host evaluator;
   4. jax must never have been imported.
+
+Each path of phase 3 starts with every launch count at 0; a path fails if
+its kernel did not launch once per device wave.
 
 Data is made with numpy from a fixed seed under build/chip_smoke/ and
 removed at exit.  The last line of stdout is
@@ -33,13 +45,16 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SEED = 20261016
 GENOME = 50_000_000      # bench.py's realistic genome size
-N_READS = 200_000        # 4 batches of BATCH_NUM = 50k
+N_READS = 200_000        # 5 batches: BATCH_NUM = 50k, cut at reader chunks
+N_PAIRS = 100_000
 READLEN = 100
 N_FRAC = 0.02            # reads given one N (exception rows in the blob)
 WAVE_READS = 20_000      # reads per phase-2 configuration
 PHASE2 = [("C:T", False, False), ("A:CGT", False, False),
           ("C:T", True, False), ("A:G", False, True)]
-BENCH_C, BENCH_W, BENCH_U = 1 << 20, 7, 8192
+PHASE2_GAP = [("T:-", 3, False), ("C:T", 1, False), ("A:CGT", 2, False),
+              ("C:T", 2, True)]            # (rule, gap, nt3)
+BENCH_C, BENCH_W, BENCH_U, BENCH_GAP = 1 << 20, 7, 8192, 3
 NT = b"ACGT"
 
 
@@ -106,7 +121,134 @@ def mixed_reads(rng, g, n, rule):
     pos = rng.integers(0, len(g) - 150, n)
     reads = convert(rng, g[pos[:, None] + np.arange(150)[None, :]], rule)
     add_ns(rng, reads, lens)
-    return [r[:ln].tobytes() for r, ln in zip(reads, lens)]
+    return rows(reads, lens)
+
+
+def compact(win, drop, n):
+    """Rows of ``win`` without the ``drop`` bases, cut to n: (matrix,
+    lengths).  A row that keeps fewer than n bases is that much shorter."""
+    import numpy as np
+    order = np.argsort(drop, axis=1, kind="stable")   # kept bases first
+    kept = np.take_along_axis(win, order, axis=1)[:, :n]
+    return kept, np.minimum(n, (~drop).sum(axis=1))
+
+
+def rows(mat, lens):
+    """Read sequences as bytes: row i of ``mat`` cut to lens[i]."""
+    return [r[:ln].tobytes() for r, ln in zip(mat, lens)]
+
+
+def gapped_reads(rng, g, n, rule, gap):
+    """n reads of 64-150 bp: a third with a deletion and a third with an
+    insertion of 1..gap bases at 15..48; the rule's conversions and 0.5%
+    substitutions (T:-: each T dropped with p = 0.04 instead, as BID-seq
+    reads are made); about N_FRAC with one N."""
+    import numpy as np
+    frm, tos = rule.split(":")
+    span = 150 + 8
+    pos = rng.integers(0, len(g) - span, n)
+    win = g[pos[:, None] + np.arange(span)[None, :]]
+    col = np.arange(span)[None, :]
+    kind = rng.integers(0, 3, n)                 # 0 none, 1 del, 2 ins
+    j = rng.integers(15, 64 - 15, n)[:, None]
+    d = rng.integers(1, gap + 1, n)[:, None]
+    drop = (kind[:, None] == 1) & (col >= j) & (col < j + d)
+    if tos == "-":
+        drop |= (win == ord(frm)) & (rng.random(win.shape) < 0.04)
+    reads, _ = compact(win, drop, span)
+    # insertion rows: reads[:j] + d random bases + reads[j:]
+    ins = rng.choice(np.frombuffer(NT, np.uint8), size=(n, gap))
+    inside = (col >= j) & (col < j + d)
+    src = np.where(col < j, col, np.where(inside, 0, col - d))
+    grown = np.where(inside, ins[np.arange(n)[:, None],
+                                 np.clip(col - j, 0, gap - 1)],
+                     np.take_along_axis(reads, src, axis=1))
+    reads = np.where((kind == 2)[:, None], grown, reads)
+    if tos != "-":
+        reads = convert(rng, reads, rule)
+    lens = rng.integers(64, 151, n)
+    add_ns(rng, reads, lens)
+    return rows(reads, lens)
+
+
+def bidseq_reads(rng, g, n):
+    """n 100 bp BID-seq reads as tools/gapbench.py makes them: a window of
+    L+8 bases, each T dropped with p = 0.04, cut to L, 0.3% substitutions;
+    about N_FRAC with one N."""
+    import numpy as np
+    span = READLEN + 8
+    pos = rng.integers(0, len(g) - span, n)
+    win = g[pos[:, None] + np.arange(span)[None, :]]
+    reads, lens = compact(win, (win == ord("T"))
+                          & (rng.random(win.shape) < 0.04), READLEN)
+    err = rng.random(reads.shape) < 0.003
+    reads = np.where(err, rng.choice(np.frombuffer(NT, np.uint8),
+                                     size=reads.shape), reads)
+    add_ns(rng, reads, lens)
+    return rows(reads, lens)
+
+
+def pe_reads(rng, g, n, gap=0):
+    """n pairs of 100 bp from C:T-converted fragments of 150..399 bp
+    (tests/test_differential_pe.py:19's simulator): read 1 the fragment's
+    5' end, read 2 the reverse complement of its 3' end; 1% substitutions,
+    10% orphans whose mate 2 is random.  With ``gap``, a third of the read
+    1s lose 1..gap bases at 15..84."""
+    import numpy as np
+    nt = np.frombuffer(NT, np.uint8)
+    ins = rng.integers(150, 400, n)
+    pos = rng.integers(0, len(g) - 400, n)
+    frag = g[pos[:, None] + np.arange(400)[None, :]]
+    conv = (frag == ord("C")) & (rng.random(frag.shape) < 0.5)
+    frag = np.where(conv, ord("T"), frag).astype(np.uint8)
+    sub = ~conv & (rng.random(frag.shape) < 0.01)
+    frag = np.where(sub, rng.choice(nt, size=frag.shape), frag)
+    span = READLEN + gap
+    r1 = frag[:, :span]
+    col = np.arange(span)[None, :]
+    j = rng.integers(15, 85, n)[:, None]
+    d = rng.integers(1, gap + 1, n)[:, None] if gap else 0
+    cut = (rng.random(n) < 1 / 3)[:, None] & (col >= j) & (col < j + d)
+    r1, l1 = compact(r1, cut, READLEN)
+    comp = np.zeros(256, np.uint8)
+    comp[nt] = np.frombuffer(b"TGCA", np.uint8)
+    tail = (ins - READLEN)[:, None] + np.arange(READLEN)[None, :]
+    r2 = comp[np.take_along_axis(frag, tail, axis=1)][:, ::-1]
+    orphan = rng.random(n) < 0.1
+    r2[orphan] = rng.choice(nt, size=(int(orphan.sum()), READLEN))
+    return rows(r1, l1), [r.tobytes() for r in r2]
+
+
+def write_pairs(path1, path2, r1, r2):
+    for path, seqs, mate in ((path1, r1, 1), (path2, r2, 2)):
+        with open(path, "wb") as f:
+            for i, s in enumerate(seqs):
+                f.write(b"@p%d/%d\n%s\n+\n%s\n" % (i, mate, s,
+                                                     b"I" * len(s)))
+
+
+def wave_candidates(p, fasta, fq, device):
+    """(aligner, encoded batch, loc, plane, row) of the first batch of fq:
+    every candidate of every stratum, as the device-forced path ships
+    them."""
+    import numpy as np
+    from basal_tpu.index.reference import load_reference
+    from basal_tpu.index.seedindex import build_index
+    from basal_tpu.reads.encode import encode_batch
+    from basal_tpu.reads.io import open_reads
+    from basal_tpu_torch.align.pipeline import TorchSingleEndAligner
+    ref = load_reference(str(fasta), p)
+    aligner = TorchSingleEndAligner(p, ref, build_index(ref, p),
+                                    device=device)
+    reader = open_reads(str(fq), p, readset=0)
+    enc = encode_batch(p, reader.next_batch())
+    reader.close()
+    nb = aligner.native
+    groups, _goff, _total = nb.build_groups(enc, enc.reads.indices)
+    off = np.full(groups.shape[0], -1, np.int64)
+    loc, plane, row = nb.fill_groups(enc, groups,
+                                     np.arange(groups.shape[0]), off)
+    return aligner, enc, loc, plane.astype(np.int32), row
 
 
 def kernel_checks(fasta, g, work, device, n_reads=WAVE_READS):
@@ -115,12 +257,7 @@ def kernel_checks(fasta, g, work, device, n_reads=WAVE_READS):
     import numpy as np
     import torch
     from basal_tpu.config import AlignParams
-    from basal_tpu.index.reference import load_reference
-    from basal_tpu.index.seedindex import build_index
-    from basal_tpu.reads.encode import encode_batch
-    from basal_tpu.reads.io import open_reads
-    from basal_tpu_torch.align.pipeline import (TorchSingleEndAligner,
-                                                blob_to_device)
+    from basal_tpu_torch.align.pipeline import blob_to_device
     from basal_tpu_torch.ops.extend import extend_kernel_blob
     from basal_tpu_torch.ops.extend_cuda import extend_counts_blob
 
@@ -132,21 +269,10 @@ def kernel_checks(fasta, g, work, device, n_reads=WAVE_READS):
                         batch_reads=n_reads)
         fq = work / "waves.fq"
         write_fastq(fq, mixed_reads(rng, g, n_reads, rule))
-        ref = load_reference(str(fasta), p)
-        index = build_index(ref, p)
-        aligner = TorchSingleEndAligner(p, ref, index, device=device)
-        reader = open_reads(str(fq), p, readset=0)
-        enc = encode_batch(p, reader.next_batch())
-        reader.close()
-        nb = aligner.native
-        groups, _goff, _total = nb.build_groups(enc, enc.reads.indices)
-        off = np.full(groups.shape[0], -1, np.int64)
-        loc, plane, row = nb.fill_groups(enc, groups,
-                                         np.arange(groups.shape[0]), off)
+        aligner, enc, loc, plane, row = wave_candidates(p, fasta, fq, device)
         ctx = aligner.dev
         n_waves = n_cand = n_exc = n_zero = 0
-        for blob, C, U, E in ctx.wave_blobs(enc, loc, plane.astype(np.int32),
-                                            row):
+        for blob, C, U, E in ctx.wave_blobs(enc, loc, plane, row):
             shape = dict(mode=ctx.mode, W=enc.W, nw=ctx.nw, C=C, U=U, E=E)
             dblob, _staging = blob_to_device(blob, device)
             before = extend_counts_blob.launches
@@ -169,6 +295,67 @@ def kernel_checks(fasta, g, work, device, n_reads=WAVE_READS):
                                  f"{n_exc} N rows, {n_zero} zero counts")
         log(f"kernel == plain [{name}]: {n_waves} waves, {n_cand} candidates "
             f"({n_zero} with 0 mismatches), {n_exc} N rows, W={enc.W}")
+    return worst
+
+
+def gap_kernel_checks(fasta, g, work, device, n_reads=WAVE_READS):
+    """Phase 2a, gap kernel: every wave of a real gapped batch, kernel ==
+    plain version on counts, pos0 and pos1.  Returns the largest absolute
+    difference (0 when all are equal)."""
+    import numpy as np
+    import torch
+    from basal_tpu.config import AlignParams
+    from basal_tpu_torch.align.pipeline import blob_to_device
+    from basal_tpu_torch.ops.extend import (K_POS, candidate_rows,
+                                            carve_blob, extend_kernel_blob)
+    from basal_tpu_torch.ops.extend_cuda import extend_gap_blob
+
+    rng = np.random.default_rng(SEED + 3)
+    worst = 0
+    for rule, gap, nt3 in PHASE2_GAP:
+        name = f"{rule}{' -3' if nt3 else ''} -g {gap}"
+        p = AlignParams(conversion=rule, randseed=1, nt3=nt3, gap=gap,
+                        batch_reads=n_reads)
+        fq = work / "gap_waves.fq"
+        write_fastq(fq, gapped_reads(rng, g, n_reads, rule, gap))
+        aligner, enc, loc, plane, row = wave_candidates(p, fasta, fq, device)
+        ctx = aligner.dev
+        n_waves = n_cand = n_exc = n_full0 = n_full1 = n_zero = 0
+        for blob, C, U, E in ctx.wave_blobs(enc, loc, plane, row):
+            shape = dict(mode=ctx.mode, gap=gap, W=enc.W, nw=ctx.nw, C=C,
+                         U=U, E=E)
+            dblob, _staging = blob_to_device(blob, device)
+            before = extend_gap_blob.launches
+            got = extend_gap_blob(ctx.ref32, dblob, **shape)
+            want = extend_kernel_blob(ctx.ref32, dblob, **shape)
+            if extend_gap_blob.launches != before + 1:
+                raise AssertionError("the gap kernel did not launch")
+            for part, a, b in zip(("counts", "pos0", "pos1"), got, want):
+                diff = int((a.int() - b.int()).abs().max()) if C else 0
+                worst = max(worst, diff)
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{name}: gap kernel != plain "
+                                         f"version on {part} (max abs diff "
+                                         f"{diff}, C={C})")
+            carved = carve_blob(dblob, mode=ctx.mode, W=enc.W, C=C, U=U, E=E)
+            rl = carved[8][candidate_rows(carved[2], C)]
+            counts, pos0, pos1 = (t.long() for t in want)
+            n_waves += 1
+            n_cand += C
+            n_exc += int(((blob[C + U + 1:C + 2 * U + 1] >> 20) & 0xFFF)
+                         .astype(bool).sum())
+            n_full0 += int((pos0[:, K_POS - 1] < rl).sum())
+            n_full1 += int((pos1[:, :, K_POS - 1] < rl[:, None]).any(1).sum())
+            n_zero += int((counts == 0).sum())
+        if min(n_cand, n_exc, n_full0, n_full1, n_zero) == 0:
+            raise AssertionError(f"{name}: degenerate waves: {n_cand} cand, "
+                                 f"{n_exc} N rows, {n_full0} / {n_full1} "
+                                 f"with >= {K_POS} mismatches in the main / "
+                                 f"a shifted alignment, {n_zero} exact")
+        log(f"gap kernel == plain [{name}]: {n_waves} waves, {n_cand} "
+            f"candidates ({n_zero} exact, {n_full0} / {n_full1} with >= "
+            f"{K_POS} mismatches in the main / a shifted alignment), "
+            f"{n_exc} N rows, W={enc.W}")
     return worst
 
 
@@ -240,72 +427,161 @@ def kernel_timing(device):
     return out
 
 
-def main_path(fasta, fq, work, device, n_reads):
-    """Phase 3: the port's run_single_end, device-forced, then the host
-    evaluator on the same input; SAM bodies must be byte-identical."""
+def gap_kernel_timing(device):
+    """Phase 2b, gap kernel: kernel and plain version at the timing shape,
+    gap 3, oneway, in turns; ms per 2^20 candidates."""
+    import torch
+    from basal_tpu_torch.ops.extend import extend_kernel_blob
+    from basal_tpu_torch.ops.extend_cuda import extend_gap_blob
+    ref32, blob, shape = synthetic_wave("oneway", device)
+    shape["gap"] = BENCH_GAP
+    got = extend_gap_blob(ref32, blob, **shape)
+    want = extend_kernel_blob(ref32, blob, **shape)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("gap kernel != plain at timing shape")
+    del got, want
+    kern = lambda: extend_gap_blob(ref32, blob, **shape)
+    plain = lambda: extend_kernel_blob(ref32, blob, **shape)
+    p1 = time_ms(plain, 3)
+    k1 = time_ms(kern, 20)
+    k2 = time_ms(kern, 20)
+    p2 = time_ms(plain, 3)
+    scale = (1 << 20) / shape["C"]
+    log(f"timing [gap {BENCH_GAP} oneway] C={shape['C']} W={shape['W']} "
+        f"U={shape['U']}: kernel {k1 * scale:.4f} / {k2 * scale:.4f} ms, "
+        f"plain {p1 * scale:.4f} / {p2 * scale:.4f} ms per 2^20 candidates")
+    del ref32, blob
+    torch.cuda.empty_cache()
+    return (k1 + k2) / 2 * scale, (p1 + p2) / 2 * scale
+
+
+def device_profile(run):
+    """Run ``run()`` under torch.profiler; the card's busy time by kind
+    (ms): kernels, host-to-device and device-to-host copies, all."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        run()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    busy = {"kernel": 0.0, "HtoD": 0.0, "DtoH": 0.0, "all": 0.0}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = e.time_range.elapsed_us() / 1e3
+        busy["all"] += ms
+        kind = ("HtoD" if "HtoD" in e.name else "DtoH" if "DtoH" in e.name
+                else "kernel" if "Memcpy" not in e.name
+                and "Memset" not in e.name else None)
+        if kind:
+            busy[kind] += ms
+    return wall, busy
+
+
+def device_vs_host(label, argv, files, fasta, work, device, n_reads,
+                   kernel, min_aligned, profile=False):
+    """Phase 3: one of the port's paths (run_single_end, or run_pair_end
+    with -b) twice on the same input: device-forced, every launch count
+    set to 0 before it and read after, then with the C++ host evaluator.
+    The SAM bodies must be byte-identical, and ``kernel``'s launches must
+    equal the device waves.  With ``profile``, the device-forced run once
+    more under torch.profiler."""
     from basal_tpu.cli import parse_args
     from basal_tpu_torch.align.pipeline import (TorchDeviceContext,
                                                 run_single_end)
     from basal_tpu_torch.cli import params_from_args
-    from basal_tpu_torch.ops.extend_cuda import extend_counts_blob
+    from basal_tpu_torch.ops.extend_cuda import (extend_counts_blob,
+                                                 extend_gap_blob)
+    from basal_tpu_torch.pairs.pipeline import run_pair_end
 
-    argv = ["-a", str(fq), "-d", str(fasta), "-M", "A:G", "-S", "1", "-u",
-            "-V", "0"]
+    wrappers = {"count": extend_counts_blob, "gap": extend_gap_blob}
+    argv = ["-d", str(fasta), "-a", str(files[0])] + (
+        ["-b", str(files[1])] if len(files) > 1 else []) + argv + [
+        "-S", "1", "-u", "-V", "0"]
+    params = params_from_args(argv, *parse_args(argv))
+    pe = params.pairend
+    run = run_pair_end if pe else run_single_end
+
+    def drive(out, timings):
+        with open(out, "wb") as fh:
+            return run(params, str(fasta), *map(str, files), out_fh=fh,
+                       command_line="chip_smoke", timings=timings,
+                       device=device)
+
     result = {}
     for mode in ("0", "1"):
         os.environ["BASAL_TPU_HOST_EVAL"] = mode
-        params = params_from_args(argv, *parse_args(argv))
-        out = work / f"host_eval_{mode}.sam"
         timings = {}
-        extend_counts_blob.launches = 0
-        with open(out, "wb") as fh:
-            aligner = run_single_end(params, str(fasta), str(fq), out_fh=fh,
-                                     command_line="chip_smoke",
-                                     timings=timings, device=device)
+        for w in wrappers.values():
+            w.launches = 0
+        aligner = drive(work / f"{label}_{mode}.sam", timings)
         wall = time.time() - timings["t_align_start"]
-        launches = extend_counts_blob.launches
+        launches = {k: w.launches for k, w in wrappers.items()}
         st = aligner.stage
-        n_al, _, _ = aligner.stats()
-        log(f"run_single_end BASAL_TPU_HOST_EVAL={mode}: ref "
+        if pe:
+            n_al = aligner.pair_stats()[0]
+            visit = st["cand_enum"] - st["cand_host"] - st["cand_device"]
+        else:
+            n_al = aligner.stats()[0]
+            visit = st["cand_visit"]
+        dev = aligner._dev
+        log(f"{label} BASAL_TPU_HOST_EVAL={mode}: ref "
             f"{timings['t_ref']:.3f} s, index {timings['t_index']:.3f} s, "
-            f"align {wall:.3f} s = {n_reads / wall:.1f} reads/s; "
-            f"aligned {n_al}/{n_reads}; candidates device "
-            f"{st['cand_device']} host {st['cand_host']} visit "
-            f"{st['cand_visit']}; kernel launches {launches}")
+            f"align {wall:.3f} s = {n_reads / wall:.1f} "
+            f"{'pairs' if pe else 'reads'}/s; aligned {n_al}/{n_reads}; "
+            f"candidates device {st['cand_device']} host {st['cand_host']} "
+            f"visit {visit}; launches {launches}; batches "
+            + ", ".join(f"{k} {v}" for k, v in st.items()
+                        if "batches" in k and v))
         if mode == "0":
-            dev = aligner._dev
             if not isinstance(dev, TorchDeviceContext):
                 raise AssertionError("waves did not go through "
                                      "TorchDeviceContext")
             if not (st["cand_device"] > 0 and st["cand_host"] == 0
-                    and st["cand_visit"] == 0):
+                    and visit == 0):
                 raise AssertionError(f"not every candidate ran on the "
                                      f"device: {st}")
-            if device.type == "cuda" and not 0 < launches == dev.up_waves:
-                raise AssertionError(f"{launches} kernel launches for "
-                                     f"{dev.up_waves} waves")
-            if n_al < 0.9 * n_reads:
+            want = {k: dev.up_waves if k == kernel else 0 for k in wrappers}
+            if not dev.up_waves > 0 or launches != want:
+                raise AssertionError(f"launches {launches} for "
+                                     f"{dev.up_waves} {kernel} waves")
+            if n_al < min_aligned * n_reads:
                 raise AssertionError(f"only {n_al} of {n_reads} aligned")
-            result.update(launches=launches, align_s=wall,
-                          reads_per_s=n_reads / wall,
-                          waves=dev.up_waves, cand=st["cand_device"],
-                          up_bytes=dev.up_bytes)
-        elif st["cand_device"] != 0:
-            raise AssertionError("host-evaluator run used the device")
+            result.update(launches=launches[kernel], align_s=wall,
+                          rate=n_reads / wall, waves=dev.up_waves,
+                          cand=st["cand_device"], up_bytes=dev.up_bytes,
+                          down_bytes=dev.down_bytes)
+        else:
+            if st["cand_device"] != 0:
+                raise AssertionError("host-evaluator run used the device")
+            result["host_rate"] = n_reads / wall
+    if profile:
+        os.environ["BASAL_TPU_HOST_EVAL"] = "0"
+        wall, busy = device_profile(
+            lambda: drive(work / f"{label}_prof.sam", {}))
+        result.update(prof_wall=wall, busy=busy)
+        log(f"{label} under torch.profiler: run {wall:.3f} s, card busy "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in busy.items())
+            + f"; idle share {1 - busy['all'] / 1e3 / wall:.5f}")
     os.environ.pop("BASAL_TPU_HOST_EVAL")
 
     def body(path):
         with open(path, "rb") as f:
             return [ln for ln in f if not ln.startswith(b"@PG")]
 
-    dev_sam, host_sam = body(work / "host_eval_0.sam"), body(
-        work / "host_eval_1.sam")
+    dev_sam, host_sam = (body(work / f"{label}_{m}.sam") for m in "01")
     n_body = sum(not ln.startswith(b"@") for ln in dev_sam)
-    if n_body != n_reads:
-        raise AssertionError(f"{n_body} SAM records for {n_reads} reads")
+    if n_body != n_reads * len(files):
+        raise AssertionError(f"{n_body} SAM records for {n_reads} "
+                             f"{'pairs' if pe else 'reads'}")
     if dev_sam != host_sam:
-        raise AssertionError("device-forced SAM differs from host evaluator")
-    log(f"SAM device-forced == host evaluator: {len(dev_sam)} lines compared")
+        raise AssertionError(f"{label}: device-forced SAM differs from "
+                             f"host evaluator")
+    log(f"{label}: SAM device-forced == host evaluator, {len(dev_sam)} "
+        f"lines; blob {result['up_bytes']} B up, results "
+        f"{result['down_bytes']} B down over {result['waves']} waves")
     return result
 
 
@@ -349,27 +625,54 @@ def main() -> int:
         write_fasta(fasta, g)
         fq = work / "reads.fq"
         write_fastq(fq, bench_reads(rng, g, N_READS))
+        fq_bid = work / "bidseq.fq"
+        write_fastq(fq_bid, bidseq_reads(rng, g, N_READS))
+        pairs = {}
+        for gap in (0, 2):
+            pairs[gap] = (work / f"r1_g{gap}.fq", work / f"r2_g{gap}.fq")
+            write_pairs(*pairs[gap], *pe_reads(rng, g, N_PAIRS, gap=gap))
 
-        # phase 2: kernel against the plain version
+        # phase 2: kernels against their plain versions
         worst = kernel_checks(fasta, g, work, device)
+        worst_gap = gap_kernel_checks(fasta, g, work, device)
         times = kernel_timing(device)
+        gap_times = gap_kernel_timing(device)
 
-        # phase 3: main path
-        main = main_path(fasta, fq, work, device, N_READS)
+        # phase 3: the paths, device-forced against the host evaluator
+        main = device_vs_host("se A:G", ["-M", "A:G"], (fq,), fasta, work,
+                              device, N_READS, "count", 0.9)
+        bid = device_vs_host("se T:- -g 3", ["-M", "T:-", "-g", "3"],
+                             (fq_bid,), fasta, work, device, N_READS, "gap",
+                             0.5, profile=True)
+        pe = device_vs_host("pe C:T", ["-M", "C:T"], pairs[0], fasta, work,
+                            device, N_PAIRS, "count", 0.5)
+        pe_gap = device_vs_host("pe C:T -g 2", ["-M", "C:T", "-g", "2"],
+                                pairs[2], fasta, work, device, N_PAIRS,
+                                "gap", 0.5)
 
     # phase 4: no jax
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
-    log(f"main path: {main['reads_per_s']:.1f} reads/s over {N_READS} reads "
-        f"({main['waves']} waves, {main['cand']} candidates, "
-        f"{main['up_bytes']} blob bytes) on {smi}")
+    for label, r, n, unit in (("se A:G", main, N_READS, "reads"),
+                              ("se T:- -g 3", bid, N_READS, "reads"),
+                              ("pe C:T", pe, N_PAIRS, "pairs"),
+                              ("pe C:T -g 2", pe_gap, N_PAIRS, "pairs")):
+        log(f"{label}: {r['rate']:.1f} {unit}/s device-forced, "
+            f"{r['host_rate']:.1f} with the host evaluator, over {n} {unit} "
+            f"({r['waves']} waves, {r['cand']} candidates, {r['up_bytes']} "
+            f"blob bytes up, {r['down_bytes']} result bytes down) on {smi}")
     kernels = [{
         "name": "count_blob_kernel", "route": "cuda",
         "source": "basal_tpu_torch/csrc/count_kernel.cu",
         "replaces": "basal_tpu/ops/extend_pallas.py:35",
         "launches": main["launches"], "max_abs_err": worst,
-        "ms": times["oneway"][0], "plain_ms": times["oneway"][1]}]
+        "ms": times["oneway"][0], "plain_ms": times["oneway"][1]}, {
+        "name": "gap_blob_kernel", "route": "cuda",
+        "source": "basal_tpu_torch/csrc/gap_kernel.cu",
+        "replaces": "basal_tpu/ops/extend_pallas.py:137",
+        "launches": bid["launches"], "max_abs_err": worst_gap,
+        "ms": gap_times[0], "plain_ms": gap_times[1]}]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,11 @@
-"""The CUDA count kernel on the card == its plain PyTorch version.
+"""The CUDA count and gap kernels on the card == their plain PyTorch versions.
 
 Marked ``cuda``: each test skips where torch finds no card.  This file
 imports neither jax nor conftest, so that it runs on a machine without jax:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Counts are integers: equality is exact.
+Counts and mismatch positions are integers: equality is exact.
 """
 
 import io
@@ -94,8 +94,54 @@ def test_mixed_devices_raise(cuda):
                            torch.from_numpy(blob).to(cuda), **shape)
 
 
+@pytest.mark.parametrize("mode", ["oneway", "multiway", "nt3"])
+@pytest.mark.parametrize("gap,C,U,W,E", [(1, 1, 1, 4, 1),
+                                         (2, 1000, 37, 7, 5),
+                                         (3, 65_537, 4000, 10, 4094),
+                                         (1, 200_003, 513, 7, 1),
+                                         (3, 4099, 60, 30, 3)])
+def test_gap_kernel_equals_plain(cuda, mode, gap, C, U, W, E):
+    """Random rows (read lengths 0..16*W, so lists of every length, many
+    longer than 14) and candidates over the whole reference, its first and
+    last words included (the window is clamped at both ends)."""
+    from basal_tpu_torch.ops.extend import extend_kernel_blob
+    from basal_tpu_torch.ops.extend_cuda import extend_gap_blob
+    ref32, blob, shape = _random_blob(mode, C, U, W, E, nw=1 << 16,
+                                      seed=C + W + gap)
+    shape["gap"] = gap
+    r, b = torch.from_numpy(ref32).to(cuda), torch.from_numpy(blob).to(cuda)
+    before = extend_gap_blob.launches
+    got = extend_gap_blob(r, b, **shape)
+    torch.cuda.synchronize()
+    assert extend_gap_blob.launches == before + 1
+    assert [t.dtype for t in got] == [torch.uint8, torch.int16, torch.int16]
+    assert got[2].shape == (C, 2 * gap, 14)
+    want_dev = extend_kernel_blob(r, b, **shape)
+    want_cpu = extend_gap_blob(torch.from_numpy(ref32),
+                               torch.from_numpy(blob), **shape)
+    assert extend_gap_blob.launches == before + 1  # CPU call: no launch
+    for name, g, w, c in zip(("counts", "pos0", "pos1"), got, want_dev,
+                             want_cpu):
+        assert torch.equal(g, w), name
+        assert torch.equal(g.cpu(), c), name
+
+
+def test_gap_empty_wave_does_not_launch(cuda):
+    from basal_tpu_torch.ops.extend_cuda import extend_gap_blob
+    ref32 = torch.zeros(512, dtype=torch.int32, device=cuda)
+    blob = torch.tensor([0, 0, 100] + [0] * 14, dtype=torch.int32,
+                        device=cuda)
+    before = extend_gap_blob.launches
+    cnt, pos0, pos1 = extend_gap_blob(ref32, blob, mode="oneway", gap=3, W=7,
+                                      nw=256, C=0, U=1, E=1)
+    assert cnt.shape == (0,) and pos0.shape == (0, 14)
+    assert pos1.shape == (0, 6, 14)
+    assert extend_gap_blob.launches == before
+
+
 def _tiny_data(tmp_path, rule, seed=7, n_reads=300):
-    """A 9 kbp genome and mixed-length converted reads, some with Ns."""
+    """A 9 kbp genome and mixed-length converted reads, some with Ns, every
+    fourth read with a deletion of 1-3 bases."""
     rng = np.random.default_rng(seed)
     nt = np.frombuffer(b"ACGT", np.uint8)
     g = rng.choice(nt, size=9000)
@@ -110,7 +156,11 @@ def _tiny_data(tmp_path, rule, seed=7, n_reads=300):
             s[conv] = ord(tos[0])
             if i % 5 == 0:
                 s[int(rng.integers(0, ln))] = ord("N")
-            f.write(b"@r%d\n%s\n+\n%s\n" % (i, s.tobytes(), b"I" * ln))
+            if i % 4 == 0:
+                j = int(rng.integers(15, ln - 15))
+                s = np.delete(s, np.arange(j, j + int(rng.integers(1, 4))))
+            f.write(b"@r%d\n%s\n+\n%s\n" % (i, s.tobytes(),
+                                                b"I" * len(s)))
 
 
 @pytest.mark.parametrize("rule,nt3,n_mis", [("C:T", False, False),
@@ -140,4 +190,78 @@ def test_pipeline_cuda_equals_cpu(cuda, tmp_path, monkeypatch, rule, nt3,
         assert launches == (al._dev.up_waves if dev == "cuda" else 0)
         outs[dev] = buf.getvalue()
     assert outs["cpu"].count(b"\n") > 300
+    assert outs["cuda"] == outs["cpu"]
+
+
+@pytest.mark.parametrize("rule,gap", [("T:-", 3), ("C:T", 1), ("A:CGT", 2)])
+def test_gapped_pipeline_cuda_equals_cpu(cuda, tmp_path, monkeypatch, rule,
+                                         gap):
+    """Gapped run_single_end, device forced: every wave through the gap
+    kernel, the same SAM as the plain gap core on the CPU."""
+    from basal_tpu.config import AlignParams
+    from basal_tpu_torch.align.pipeline import run_single_end
+    from basal_tpu_torch.ops.extend_cuda import extend_gap_blob
+    _tiny_data(tmp_path, "T:T" if rule == "T:-" else rule)  # no-op conversion
+    monkeypatch.setenv("BASAL_TPU_HOST_EVAL", "0")
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        p = AlignParams(conversion=rule, randseed=11, gap=gap, out_unmap=True,
+                        batch_reads=100)
+        buf = io.BytesIO()
+        before = extend_gap_blob.launches
+        al = run_single_end(p, str(tmp_path / "ref.fa"),
+                            str(tmp_path / "reads.fq"), out_fh=buf,
+                            device=dev)
+        launches = extend_gap_blob.launches - before
+        assert al.stage["cand_device"] > 0 and al.stage["cand_host"] == 0
+        assert al.stage["cand_visit"] == 0
+        assert launches == (al._dev.up_waves if dev == "cuda" else 0)
+        outs[dev] = buf.getvalue()
+    assert outs["cpu"].count(b"\n") > 300
+    assert outs["cuda"] == outs["cpu"]
+
+
+@pytest.mark.parametrize("gap", [0, 2])
+def test_pair_end_cuda_equals_cpu(cuda, tmp_path, monkeypatch, gap):
+    """run_pair_end, device forced: both mates' waves through the count
+    (gap 0) or gap kernel, the same SAM as on the CPU."""
+    from basal_tpu.config import AlignParams
+    from basal_tpu_torch.ops.extend_cuda import (extend_counts_blob,
+                                                 extend_gap_blob)
+    from basal_tpu_torch.pairs.pipeline import run_pair_end
+    rng = np.random.default_rng(3)
+    g = rng.choice(np.frombuffer(b"ACGT", np.uint8), size=9000)
+    (tmp_path / "ref.fa").write_bytes(b">c1\n" + g.tobytes() + b"\n")
+    comp = np.zeros(256, np.uint8)
+    comp[np.frombuffer(b"ACGT", np.uint8)] = np.frombuffer(b"TGCA", np.uint8)
+    with open(tmp_path / "r1.fq", "wb") as f1, \
+            open(tmp_path / "r2.fq", "wb") as f2:
+        for i in range(200):
+            ins = int(rng.integers(150, 400))
+            pos = int(rng.integers(0, len(g) - ins))
+            frag = g[pos:pos + ins].copy()
+            frag[(frag == ord("C")) & (rng.random(ins) < 0.5)] = ord("T")
+            r1, r2 = frag[:90], comp[frag[-90:]][::-1]
+            if gap and i % 3 == 0:
+                r1 = np.delete(r1, np.arange(40, 40 + int(rng.integers(1, 3))))
+            f1.write(b"@p%d/1\n%s\n+\n%s\n" % (i, r1.tobytes(),
+                                                 b"I" * len(r1)))
+            f2.write(b"@p%d/2\n%s\n+\n%s\n" % (i, r2.tobytes(),
+                                                 b"I" * len(r2)))
+    counter = extend_gap_blob if gap else extend_counts_blob
+    monkeypatch.setenv("BASAL_TPU_HOST_EVAL", "0")
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        p = AlignParams(conversion="C:T", randseed=5, gap=gap, pairend=True,
+                        out_unmap=True, batch_reads=60)
+        buf = io.BytesIO()
+        before = counter.launches
+        al = run_pair_end(p, str(tmp_path / "ref.fa"),
+                          str(tmp_path / "r1.fq"), str(tmp_path / "r2.fq"),
+                          out_fh=buf, device=dev)
+        assert al.stage["cand_device"] > 0 and al.stage["cand_host"] == 0
+        assert counter.launches - before == (al._dev.up_waves
+                                             if dev == "cuda" else 0)
+        outs[dev] = buf.getvalue()
+    assert outs["cpu"].count(b"\n") > 400
     assert outs["cuda"] == outs["cpu"]

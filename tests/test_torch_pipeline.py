@@ -17,6 +17,7 @@ from pathlib import Path
 import pytest
 
 from conftest import convert_reads, make_fastq, make_ref, norm_sam, random_genome
+from test_differential_gap import deletion_reads, insertion_reads
 from test_differential_se import run_ours
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -38,20 +39,29 @@ def run_port(argv, cwd, **env):
                           timeout=300)
 
 
-def _data(tmp_path, rng, rule, n_reads=100):
+def _data(tmp_path, rng, rule, n_reads=100, gap=0):
+    """Converted reads, some with Ns and shorter; with ``gap`` half of them
+    carry a planted deletion of the convert-from base and a third an
+    insertion, of up to ``gap`` bases."""
     g = random_genome(rng, 8000)
     make_ref(tmp_path / "ref.fa", [("chrT", g)])
-    reads = []
-    for i, (name, seq) in enumerate(convert_reads(
-            rng, g, n_reads, rng.choice([90, 100]), rule, rate=0.5,
-            sub_rate=0.01, revcomp_frac=0.3)):
+    frm = rule.split(":")[0]
+    reads = convert_reads(rng, g, n_reads, rng.choice([90, 100]), rule,
+                          rate=0.5, sub_rate=0.01, revcomp_frac=0.3)
+    if gap:
+        reads = (deletion_reads(rng, g, n_reads // 2, 100, frm=frm,
+                                max_del=gap)
+                 + insertion_reads(rng, g, n_reads // 3, 100, max_ins=gap)
+                 + reads[:n_reads - n_reads // 2 - n_reads // 3])
+    reads_out = []
+    for i, (name, seq) in enumerate(reads):
         if i % 6 == 0:  # reads with Ns: exception rows in the blob
             j = rng.randrange(20, len(seq))
             seq = seq[:j] + "N" + seq[j + 1:]
         if i % 5 == 0:  # mixed read lengths
             seq = seq[:64 + i % 20]
-        reads.append((name, seq))
-    make_fastq(tmp_path / "reads.fq", reads)
+        reads_out.append((name, seq))
+    make_fastq(tmp_path / "reads.fq", reads_out)
 
 
 SAM_CASES = {
@@ -60,13 +70,18 @@ SAM_CASES = {
     "A:CGT": ["-M", "A:CGT", "-n", "1"],
     "C:T-3": ["-M", "C:T", "-3"],
     "C:T-N": ["-M", "C:T", "-N"],
+    # gapped: every wave through the gap core (pos0 / pos1 lists)
+    "T:- g3": ["-M", "T:-", "-g", "3"],
+    "C:T g1": ["-M", "C:T", "-g", "1"],
+    "A:CGT g2": ["-M", "A:CGT", "-g", "2"],
 }
 
 
 @pytest.mark.parametrize("case", list(SAM_CASES))
 def test_port_sam_equals_basal_tpu(tmp_path, rng, monkeypatch, case):
     flags = SAM_CASES[case]
-    _data(tmp_path, rng, flags[1])
+    gap = int(flags[flags.index("-g") + 1]) if "-g" in flags else 0
+    _data(tmp_path, rng, flags[1], gap=gap)
     argv = ["-a", "reads.fq", "-d", "ref.fa", *flags, "-S", "17", "-u",
             "-V", "2"]
     r = run_port(argv + ["-o", "port.sam"], tmp_path)
