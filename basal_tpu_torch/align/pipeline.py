@@ -11,7 +11,10 @@ engine: encode, seed schedule, candidate groups, replay, SAM formatter) are
 
 The device is resolved once per aligner from ``BASAL_TPU_TORCH_DEVICE``
 (default ``cuda``; ``cpu`` runs the kernels' plain versions).  ``cuda``
-without a card raises: nothing falls back to the CPU on its own.
+without a card raises: nothing falls back to the CPU on its own.  With
+several visible cards the waves run on a dp x rs mesh of them
+(``parallel.mesh``); a multi-process run passes its routed seed index in
+through ``index_factory`` (``parallel.multihost``).
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ from __future__ import annotations
 import os
 import sys
 import time
-from contextlib import nullcontext
+from contextlib import contextmanager, nullcontext
 from typing import List, NamedTuple, Optional
 
 import numpy as np
@@ -162,6 +165,24 @@ class _Wave(NamedTuple):
     keep: tuple                # buffers referenced until the fetch
 
 
+def download(C: int, out: tuple, t0: float, keep: tuple) -> _Wave:
+    """A wave of C candidates whose results ``out`` are on a device: on
+    CUDA, pinned host copies started on the current stream behind an event
+    (``keep`` and ``out`` stay referenced until the fetch); on the CPU, the
+    results as they are."""
+    dev = out[0].device
+    if dev.type == "cpu":
+        return _Wave(C, out, None, t0, ())
+    with torch.cuda.device(dev):
+        host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                     for t in out)
+        for h, t in zip(host, out):
+            h.copy_(t, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+    return _Wave(C, host, event, t0, keep + (out,))
+
+
 class TorchDeviceContext:
     """Holds the packed reference on the device and runs the count kernel,
     or with ``params.gap > 0`` the gap kernel.
@@ -183,6 +204,9 @@ class TorchDeviceContext:
         self.nw = ref.ref32.shape[1]
         self.mode = _mode_name(params)
         self.ref32 = reference_to_device(ref, self.device)
+        self._init_counters()
+
+    def _init_counters(self):
         self.stalls = 0
         # measured dispatch->fetch wall per candidate (adaptive placement);
         # the first fetch is skipped: it folds in the kernel build and load
@@ -229,18 +253,8 @@ class TorchDeviceContext:
                     out = extend_gap_blob(self.ref32, dblob, gap=gap, **shape)
                 else:
                     out = (extend_counts_blob(self.ref32, dblob, **shape),)
-                self.down_bytes += sum(t.numel() * t.element_size()
-                                       for t in out)
-                if not cuda:
-                    waves.append(_Wave(C, out, None, t0, ()))
-                    continue
-                host = tuple(torch.empty(t.shape, dtype=t.dtype,
-                                         pin_memory=True) for t in out)
-                for h, t in zip(host, out):
-                    h.copy_(t, non_blocking=True)
-                event = torch.cuda.Event()
-                event.record()
-            waves.append(_Wave(C, host, event, t0, (staging, dblob, out)))
+            self.down_bytes += sum(t.numel() * t.element_size() for t in out)
+            waves.append(download(C, out, t0, (staging, dblob)))
         return waves
 
     def fetch(self, waves: List[_Wave]):
@@ -269,6 +283,20 @@ class TorchDeviceContext:
         return self.fetch(self.extend_async(enc, loc, plane, row))
 
 
+def device_context(ref: PackedReference, params: AlignParams,
+                   device: torch.device) -> TorchDeviceContext:
+    """The aligners' device context: a ShardedTorchDeviceContext over
+    ``parallel.mesh.mesh_devices(device)`` when that lists more than one
+    device and ``make_sharded_context`` takes them, else a
+    TorchDeviceContext on ``device``."""
+    from ..parallel.mesh import make_sharded_context, mesh_devices
+    devices = mesh_devices(device)
+    ctx = make_sharded_context(ref, params, devices) \
+        if len(devices) > 1 else None
+    return ctx if ctx is not None else TorchDeviceContext(ref, params,
+                                                          device)
+
+
 def host_eval_policy(device: torch.device, n_cands: int) -> bool:
     """True when a wave should run on the host evaluator: forced by
     BASAL_TPU_HOST_EVAL=0/1; in auto mode always on a CPU device (no
@@ -295,9 +323,11 @@ class TorchSingleEndAligner(SingleEndAligner):
 
     @property
     def dev(self) -> TorchDeviceContext:
-        """Device context, created on first device dispatch."""
+        """Device context, created on first device dispatch: the sharded
+        context when the aligner's device is CUDA and several cards are
+        visible (``parallel.mesh``), else the single context."""
         if self._dev is None:
-            self._dev = TorchDeviceContext(self.ref, self.p, self.device)
+            self._dev = device_context(self.ref, self.p, self.device)
         return self._dev
 
     def _fused_host(self) -> bool:
@@ -343,14 +373,43 @@ class TorchThreadedRunner(ThreadedRunner):
 def run_single_end(params: AlignParams, ref_path: str, reads_path: str,
                    out_fh=None, command_line: str = "basal_tpu_torch",
                    log=lambda *a: None, timings: Optional[dict] = None,
-                   device=None):
+                   device=None, index_factory=None):
     """Align ``reads_path`` against ``ref_path`` and write SAM bytes to
     ``out_fh``.  Returns the (first) aligner, whose ``stage`` counts where
-    candidates were evaluated."""
+    candidates were evaluated.
+
+    ``index_factory(ref, params)`` replaces the dense seed index, as a
+    multi-process run does with ``parallel.multihost.TorchRoutedSeedIndex``.
+    ``BASAL_TPU_PROFILE=<dir>`` records the run under torch.profiler (the
+    card's kernels and copies too on CUDA) and writes a Chrome trace,
+    ``<dir>/basal_tpu_torch_<pid>.json``."""
     device = resolve_device(device)
-    with malloc_window():
+    prof_dir = os.environ.get("BASAL_TPU_PROFILE")
+    with profile_run(prof_dir, device), malloc_window():
         return _run_single_end(params, ref_path, reads_path, out_fh,
-                               command_line, log, timings, device)
+                               command_line, log, timings, device,
+                               index_factory)
+
+
+@contextmanager
+def profile_run(prof_dir: Optional[str], device: torch.device):
+    """torch.profiler around the block when ``prof_dir`` is set; the
+    Chrome trace is written when the block ends, also on an error."""
+    if not prof_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    os.makedirs(prof_dir, exist_ok=True)
+    prof = profile(activities=acts)
+    prof.start()
+    try:
+        yield
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(
+            os.path.join(prof_dir, f"basal_tpu_torch_{os.getpid()}.json"))
 
 
 def _summary(log, reader, params, t0, counters, aligners):
@@ -365,14 +424,16 @@ def _summary(log, reader, params, t0, counters, aligners):
 
 
 def _run_single_end(params, ref_path, reads_path, out_fh, command_line, log,
-                    timings, device):
+                    timings, device, index_factory=None):
     t0 = time.time()
     ref = load_reference(ref_path, params)
     log(f"{ref.total_num} reference seqs loaded, total size {ref.sum_length} bp. "
         f"{time.time()-t0:.0f} secs passed")
     if timings is not None:
         timings["t_ref"] = time.time() - t0
-    if params.rrbs_flag:
+    if index_factory is not None:
+        index = index_factory(ref, params)
+    elif params.rrbs_flag:
         from basal_tpu.index.rrbs import build_rrbs_index
         index = build_rrbs_index(ref_path, ref, params)
     else:
@@ -412,17 +473,38 @@ def _run_single_end(params, ref_path, reads_path, out_fh, command_line, log,
 
     aligner = TorchSingleEndAligner(params, ref, index, device=device)
     # two-deep pipeline: host encode/dispatch of batch k+1 overlaps batch
-    # k's device work; the replay only blocks when it fetches
+    # k's device work; the replay only blocks when it fetches.  With a
+    # routed index, batch k+1's routing query is posted before batch k's
+    # align (read-ahead, as basal_tpu's _run_single_end: the shard cache is
+    # cumulative and the single-slot post blocks until batch k's own reply
+    # is in, which makes routed_ready=True sound)
     pending = None
-    while True:
-        reads = reader.next_batch()
-        state = aligner.submit_batch(reads) if reads else None
+    if hasattr(index, "wait_batch"):
+        reads_cur = reader.next_batch()
+        enc_cur = aligner.encode_post(reads_cur) if reads_cur else None
+        while reads_cur:
+            reads_next = reader.next_batch()
+            enc_next = (aligner.encode_post(reads_next)
+                        if reads_next else None)
+            if pending is not None:
+                out_fh.write(aligner.finish_batch(pending))
+                progress()
+            pending = aligner.submit_batch(
+                reads_cur, enc=enc_cur, routed_ready=enc_next is not None)
+            reads_cur, enc_cur = reads_next, enc_next
         if pending is not None:
             out_fh.write(aligner.finish_batch(pending))
             progress()
-        pending = state
-        if state is None:
-            break
+    else:
+        while True:
+            reads = reader.next_batch()
+            state = aligner.submit_batch(reads) if reads else None
+            if pending is not None:
+                out_fh.write(aligner.finish_batch(pending))
+                progress()
+            pending = state
+            if state is None:
+                break
     reader.close()
     _summary(log, reader, params, t0, aligner.stats(), [aligner])
     return aligner

@@ -10,9 +10,9 @@ gap kernel), on the device named as for single-end
 Two methods of basal_tpu's PairEndAligner are re-hosted here line for line,
 because they call its module-level placement policy, which decides on
 ``JAX_PLATFORMS``; here the port's policy decides on the torch device.
-Single device, single process: the sharded context and the multi-host
-index factory are not ported (ROADMAP.md Queue 1: multi-GPU context,
-multi-process).
+Several visible cards give the sharded context (``parallel.mesh``), and
+``run_pair_end``'s ``index_factory`` takes the routed index of a
+multi-process run (``parallel.multihost``).
 """
 
 from __future__ import annotations
@@ -35,14 +35,15 @@ from basal_tpu.pairs.pipeline import (PairEndAligner, PairThreadedRunner,
 from basal_tpu.reads.encode import encode_batch
 from basal_tpu.reads.io import RawBatch, open_reads
 
-from ..align.pipeline import (TorchDeviceContext, host_eval_policy,
-                              resolve_device)
+from ..align.pipeline import (TorchDeviceContext, device_context,
+                              host_eval_policy, resolve_device)
 
 
 class TorchPairEndAligner(PairEndAligner):
-    """PairEndAligner whose device is a torch device: ``dev`` builds a
-    TorchDeviceContext, and the placement decisions of ``align_batch`` and
-    ``_align_batch_native`` key on ``self.device``."""
+    """PairEndAligner whose device is a torch device: ``dev`` builds the
+    port's device context (``align.pipeline.device_context``), and the
+    placement decisions of ``align_batch`` and ``_align_batch_native`` key
+    on ``self.device``."""
 
     def __init__(self, params: AlignParams, ref, index, use_native=None,
                  device=None):
@@ -53,7 +54,7 @@ class TorchPairEndAligner(PairEndAligner):
     def dev(self) -> TorchDeviceContext:
         """Device context, created on first device dispatch."""
         if self._dev is None:
-            self._dev = TorchDeviceContext(self.ref, self.p, self.device)
+            self._dev = device_context(self.ref, self.p, self.device)
         return self._dev
 
     def align_batch(self, reads_a, reads_b) -> bytes:
@@ -72,6 +73,10 @@ class TorchPairEndAligner(PairEndAligner):
             sst0 = self.native_a.seed_state.copy()
             rst0 = self.native_a.reg_state.copy()
             enc_a = encode_batch(p, reads_a)
+            ens = getattr(self.index, "ensure_batch", None)
+            if ens is not None:  # routed index: fetch mate a's k-mers first
+                ens(enc_a, extra=self._stale_seeds(self.native_a,
+                                                   self.sched_a))
             groups, goff, total = self.native_a.build_groups(enc_a, ridx)
             if (total and host_eval_policy(self.device, total)) \
                     or total <= self.MAX_BATCH_CANDS:
@@ -181,14 +186,16 @@ def run_pair_end(params: AlignParams, ref_path: str, reads_a_path: str,
                  reads_b_path: str, out_fh=None,
                  command_line: str = "basal_tpu_torch",
                  log=lambda *a: None, timings: Optional[dict] = None,
-                 device=None):
+                 device=None, index_factory=None):
     """Align the mate files against ``ref_path`` and write SAM bytes to
     ``out_fh``.  Returns the (first) aligner, whose ``stage`` counts where
-    candidates were evaluated."""
+    candidates were evaluated.  ``index_factory(ref, params)`` replaces the
+    dense seed index (see ``align.pipeline.run_single_end``)."""
     device = resolve_device(device)
     with malloc_window():
         return _run_pair_end(params, ref_path, reads_a_path, reads_b_path,
-                             out_fh, command_line, log, timings, device)
+                             out_fh, command_line, log, timings, device,
+                             index_factory)
 
 
 def _pair_summary(log, rd_a, params, t0, counters, aligners):
@@ -202,13 +209,15 @@ def _pair_summary(log, rd_a, params, t0, counters, aligners):
 
 
 def _run_pair_end(params, ref_path, reads_a_path, reads_b_path, out_fh,
-                  command_line, log, timings, device):
+                  command_line, log, timings, device, index_factory=None):
     t0 = time.time()
     ref = load_reference(ref_path, params)
     log(f"{ref.total_num} reference seqs loaded, total size {ref.sum_length} bp.")
     if timings is not None:
         timings["t_ref"] = time.time() - t0
-    if params.rrbs_flag:
+    if index_factory is not None:
+        index = index_factory(ref, params)
+    elif params.rrbs_flag:
         from basal_tpu.index.rrbs import build_rrbs_index
         index = build_rrbs_index(ref_path, ref, params)
     else:

@@ -14,6 +14,11 @@ Phases (any failure raises and the script exits non-zero):
      C:T -g 1, A:CGT -g 2 and C:T -3 -g 2.  Then each kernel and its plain
      version are timed at C = 2^20 candidates, W = 7 words (100 bp),
      U = 8192 rows (the gap kernel at gap 3);
+  2b. the dp x rs mesh: on real waves (count kernel under C:T, gap kernel
+     under T:- -g 3), ShardedTorchDeviceContext at 1x4, 2x2 and 4x1 over
+     [cuda:i % cards] must equal TorchDeviceContext element for element,
+     with one launch per wave of a dp slice and rs shard; the wall per
+     wave of both is printed;
   3. main path: 200k 100 bp A:G reads against a 50 Mbp random reference
      through basal_tpu_torch's run_single_end with every wave forced onto
      the card (BASAL_TPU_HOST_EVAL=0); the SAM must be byte-identical to
@@ -24,6 +29,13 @@ Phases (any failure raises and the script exits non-zero):
   3c. paired-end: 100k pairs of 100 bp through run_pair_end, -M C:T (count
      kernel) and -M C:T -g 2 with planted deletions (gap kernel), each
      device-forced against the host evaluator;
+  3d. two processes (python -m basal_tpu_torch.parallel.worker, gloo
+     backend, both on the card) align phase 3's reads device-forced, each
+     its read window, with the seed index split between them and routed
+     (TorchRoutedSeedIndex); their SAM, concatenated, must be
+     byte-identical to phase 3's device-forced SAM, and the rs mesh that
+     spans the two processes must equal the single context;
+  3e. dryrun_multichip(4) of basal_tpu_torch.entry over [cuda:i % cards];
   4. jax must never have been imported.
 
 Each path of phase 3 starts with every launch count at 0; a path fails if
@@ -399,8 +411,9 @@ def time_ms(fn, iters):
 
 
 def kernel_timing(device):
-    """Phase 2b: kernel and plain version at the timing shape, in turns
-    (plain, kernel, kernel, plain); ms per 2^20 candidates per mode."""
+    """Phase 2, timing: kernel and plain version at the timing shape, in
+    turns (plain, kernel, kernel, plain); ms per 2^20 candidates per
+    mode."""
     import torch
     from basal_tpu_torch.ops.extend import extend_kernel_blob
     from basal_tpu_torch.ops.extend_cuda import extend_counts_blob
@@ -428,8 +441,8 @@ def kernel_timing(device):
 
 
 def gap_kernel_timing(device):
-    """Phase 2b, gap kernel: kernel and plain version at the timing shape,
-    gap 3, oneway, in turns; ms per 2^20 candidates."""
+    """Phase 2, timing, gap kernel: kernel and plain version at the timing
+    shape, gap 3, oneway, in turns; ms per 2^20 candidates."""
     import torch
     from basal_tpu_torch.ops.extend import extend_kernel_blob
     from basal_tpu_torch.ops.extend_cuda import extend_gap_blob
@@ -585,6 +598,162 @@ def device_vs_host(label, argv, files, fasta, work, device, n_reads,
     return result
 
 
+MESHES = ((1, 4), (2, 2), (4, 1))
+
+
+def mesh_checks(fasta, g, work, device, n_reads=WAVE_READS):
+    """Phase 2b: the sharded context at each of MESHES over [cuda:i % cards]
+    against the single context on the same real candidates, count kernel
+    (C:T) and gap kernel (T:- -g 3).  Each context runs twice; the second
+    run is timed.  Returns {kernel: {"single": ms per wave, "1x4": ...}}."""
+    import numpy as np
+    import torch
+    from basal_tpu.config import AlignParams
+    from basal_tpu_torch.align.pipeline import TorchDeviceContext
+    from basal_tpu_torch.ops.extend_cuda import (extend_counts_blob,
+                                                 extend_gap_blob)
+    from basal_tpu_torch.parallel.mesh import (ShardedTorchDeviceContext,
+                                               make_mesh)
+
+    rng = np.random.default_rng(SEED + 5)
+    k = torch.cuda.device_count()
+    devices = [torch.device("cuda", i % k) for i in range(4)]
+    walls = {}
+    for kernel, rule, gap in (("count", "C:T", 0), ("gap", "T:-", 3)):
+        p = AlignParams(conversion=rule, randseed=1, gap=gap,
+                        batch_reads=n_reads)
+        fq = work / "mesh_waves.fq"
+        write_fastq(fq, gapped_reads(rng, g, n_reads, rule, gap) if gap
+                    else mixed_reads(rng, g, n_reads, rule))
+        aligner, enc, loc, plane, row = wave_candidates(p, fasta, fq, device)
+        counter = extend_gap_blob if gap else extend_counts_blob
+
+        def timed(ctx):
+            ctx.extend(enc, loc, plane, row)            # warm-up
+            torch.cuda.synchronize()
+            w0, l0 = ctx.up_waves, counter.launches
+            t0 = time.perf_counter()
+            out = ctx.extend(enc, loc, plane, row)
+            wall = time.perf_counter() - t0
+            return out, ctx.up_waves - w0, counter.launches - l0, wall
+
+        want, n_waves, _, wall = timed(
+            TorchDeviceContext(aligner.ref, p, device))
+        walls[kernel] = {"single": wall / n_waves * 1e3}
+        for n_dp, n_rs in MESHES:
+            ctx = ShardedTorchDeviceContext(
+                aligner.ref, p, make_mesh(n_dp, n_rs, devices[:n_dp * n_rs]))
+            got, waves, launches, wall = timed(ctx)
+            name = f"{n_dp}x{n_rs}"
+            if launches != waves * n_rs or waves < n_dp:
+                raise AssertionError(f"mesh {name} {kernel}: {launches} "
+                                     f"launches for {waves} waves x {n_rs}")
+            for part, a, b in zip(("counts", "pos0", "pos1"), got, want):
+                if a is None and b is None:
+                    continue
+                if not np.array_equal(a, b):
+                    bad = int((a != b).sum())
+                    raise AssertionError(f"mesh {name} {kernel}: {part} "
+                                         f"differ on {bad} elements")
+            walls[kernel][name] = wall / waves * 1e3
+            log(f"mesh {name} == single [{kernel} kernel, {rule}"
+                f"{f' -g {gap}' if gap else ''}]: {loc.size} candidates, "
+                f"{waves} waves, {launches} launches; wall per wave "
+                f"{walls[kernel][name]:.3f} ms (single context "
+                f"{walls[kernel]['single']:.3f} ms over {n_waves} waves)")
+    return walls
+
+
+def multiprocess_run(fasta, fq, work, single_sam, n_reads=N_READS):
+    """Phase 3d: two worker processes (gloo, both on the card) align fq
+    device-forced with the routed seed index; the concatenated SAM must be
+    phase 3's single-process SAM (single_sam), byte for byte, @PG aside.
+    Returns the workers' stats."""
+    import socket
+    wdir = work / "mh"
+    wdir.mkdir()
+    cfg = {"params": {"conversion": "A:G", "randseed": 1, "out_unmap": True,
+                      "verbose_level": 0},
+           "ref": str(fasta), "reads": str(fq), "n_reads": n_reads,
+           "backend": "gloo", "device": "cuda", "mesh_check": True,
+           "local_devices": 2, "cmdline": "chip_smoke"}
+    (wdir / "mh_cfg.json").write_text(json.dumps(cfg))
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = {**os.environ, "PYTHONPATH": str(ROOT), "BASAL_TPU_HOST_EVAL": "0"}
+    log(f"multi-process: 2 workers, backend gloo (two ranks share the one "
+        f"card; NCCL needs a card per rank), device cuda")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "basal_tpu_torch.parallel.worker", str(pid),
+         "2", str(port), str(wdir)], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for pid in range(2)]
+    try:
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for pid, (p, (out, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"worker {pid} rc={p.returncode}\n"
+                                 f"{out[-3000:]}\n{err[-3000:]}")
+    stats = [json.loads((wdir / f"stats_p{i}.json").read_text())
+             for i in range(2)]
+
+    def body(data):
+        return [ln for ln in data.splitlines(keepends=True)
+                if not ln.startswith(b"@PG")]
+
+    merged = b"".join((wdir / f"out_p{i}.sam").read_bytes() for i in range(2))
+    if body(merged) != body(single_sam.read_bytes()):
+        raise AssertionError("2-process SAM differs from the single-process "
+                             "device-forced SAM")
+    for st in stats:
+        m = st["mesh"]
+        if not (st["launches"]["count"] > 0 and st["exchanged_queries"] > 0
+                and st["exchanged_locs"] > 0 and m["ok"]
+                and m["launches"] == m["waves"] > 0):
+            raise AssertionError(f"worker {st['pid']}: {st}")
+    t_align = max(st["t_align"] for st in stats)
+    n_lines = merged.count(b"\n")
+    log(f"multi-process: SAM of 2 processes == single process, {n_lines} "
+        f"lines; {n_reads / t_align:.1f} reads/s (slowest align "
+        f"{t_align:.3f} s; phase wall {wall:.3f} s)")
+    for st in stats:
+        m = st["mesh"]
+        log(f"  p{st['pid']} on {st['device']}: {st['reads']} reads, card "
+            f"context and kernel load {st['t_device_init']:.3f} s, ref "
+            f"{st['t_ref']:.3f} s, index shard {st['t_index']:.3f} s, align "
+            f"{st['t_align']:.3f} s; routing {st['routing_rounds']} rounds, "
+            f"t_exchange {st['t_exchange']:.3f} s, t_wait "
+            f"{st['t_wait']:.3f} s, {st['exchanged_queries']} queries, "
+            f"{st['exchanged_locs']} locs; launches {st['launches']} over "
+            f"{st.get('device_waves', 0)} waves; mesh check "
+            f"{m['candidates']} candidates, {m['waves']} waves, "
+            f"{m['t_mesh_extend']:.3f} s")
+    return {"rate": n_reads / t_align, "wall": wall, "stats": stats}
+
+
+def dryrun():
+    """Phase 3e: dryrun_multichip(4) over [cuda:i % cards]; the kernels must
+    launch in it."""
+    from basal_tpu_torch.entry import dryrun_multichip
+    from basal_tpu_torch.ops.extend_cuda import (extend_counts_blob,
+                                                 extend_gap_blob)
+    for w in (extend_counts_blob, extend_gap_blob):
+        w.launches = 0
+    report = dryrun_multichip(4)
+    launches = (extend_counts_blob.launches, extend_gap_blob.launches)
+    if min(launches) == 0:
+        raise AssertionError(f"dryrun_multichip launched {launches}")
+    log(f"dryrun_multichip(4): ok {report}; launches count/gap {launches}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -637,6 +806,7 @@ def main() -> int:
         worst_gap = gap_kernel_checks(fasta, g, work, device)
         times = kernel_timing(device)
         gap_times = gap_kernel_timing(device)
+        mesh_walls = mesh_checks(fasta, g, work, device)
 
         # phase 3: the paths, device-forced against the host evaluator
         main = device_vs_host("se A:G", ["-M", "A:G"], (fq,), fasta, work,
@@ -649,6 +819,8 @@ def main() -> int:
         pe_gap = device_vs_host("pe C:T -g 2", ["-M", "C:T", "-g", "2"],
                                 pairs[2], fasta, work, device, N_PAIRS,
                                 "gap", 0.5)
+        multi = multiprocess_run(fasta, fq, work, work / "se A:G_0.sam")
+        dryrun()
 
     # phase 4: no jax
     if "jax" in sys.modules:
@@ -662,6 +834,17 @@ def main() -> int:
             f"{r['host_rate']:.1f} with the host evaluator, over {n} {unit} "
             f"({r['waves']} waves, {r['cand']} candidates, {r['up_bytes']} "
             f"blob bytes up, {r['down_bytes']} result bytes down) on {smi}")
+    log(f"se A:G over 2 processes (gloo, routed index): "
+        f"{multi['rate']:.1f} reads/s against {main['rate']:.1f} in one "
+        f"process; routing t_exchange "
+        + " / ".join(f"{st['t_exchange']:.3f}" for st in multi["stats"])
+        + " s, t_wait "
+        + " / ".join(f"{st['t_wait']:.3f}" for st in multi["stats"])
+        + f" s on {smi}")
+    for kernel, w in mesh_walls.items():
+        log(f"mesh wall per wave [{kernel} kernel]: "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in w.items())
+            + f" on {smi}")
     kernels = [{
         "name": "count_blob_kernel", "route": "cuda",
         "source": "basal_tpu_torch/csrc/count_kernel.cu",

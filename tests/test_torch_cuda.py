@@ -265,3 +265,57 @@ def test_pair_end_cuda_equals_cpu(cuda, tmp_path, monkeypatch, gap):
         outs[dev] = buf.getvalue()
     assert outs["cpu"].count(b"\n") > 400
     assert outs["cuda"] == outs["cpu"]
+
+
+def _candidates(tmp_path, rule, gap):
+    """(params, reference, encoded batch, candidate table) of _tiny_data's
+    reads: every candidate of every stratum."""
+    from basal_tpu.align.candidates import SeedScheduler, build_candidates
+    from basal_tpu.align.rng import MyRand
+    from basal_tpu.config import AlignParams
+    from basal_tpu.index.reference import load_reference
+    from basal_tpu.index.seedindex import build_index
+    from basal_tpu.reads.encode import encode_batch
+    from basal_tpu.reads.io import open_reads
+    _tiny_data(tmp_path, "T:T" if rule == "T:-" else rule)
+    p = AlignParams(conversion=rule, randseed=11, gap=gap)
+    ref = load_reference(str(tmp_path / "ref.fa"), p)
+    index = build_index(ref, p)
+    rd = open_reads(str(tmp_path / "reads.fq"), p)
+    enc = encode_batch(p, rd.next_batch())
+    rd.close()
+    sched = SeedScheduler(p, index, MyRand(11))
+    table = build_candidates(p, index, enc, sched)
+    return p, ref, enc, table
+
+
+@pytest.mark.parametrize("rule,gap", [("C:T", 0), ("T:-", 3)])
+@pytest.mark.parametrize("n_dp,n_rs", [(1, 4), (2, 2), (4, 1)])
+def test_sharded_context_on_one_card_equals_single(cuda, tmp_path, rule, gap,
+                                                   n_dp, n_rs):
+    """The dp x rs mesh over a repeated cuda:0: counts (and gapped pos0 /
+    pos1) equal the single context's and the CPU mesh's; the kernel
+    launches once per wave of a dp slice and rs shard."""
+    from basal_tpu_torch.align.pipeline import TorchDeviceContext
+    from basal_tpu_torch.ops.extend_cuda import (extend_counts_blob,
+                                                 extend_gap_blob)
+    from basal_tpu_torch.parallel.mesh import (ShardedTorchDeviceContext,
+                                               make_mesh)
+    p, ref, enc, table = _candidates(tmp_path, rule, gap)
+    args = (enc, table.loc, table.plane.astype(np.int32), table.row)
+    assert table.loc.size > 1000
+    want = TorchDeviceContext(ref, p, cuda).extend(*args)
+    counter = extend_gap_blob if gap else extend_counts_blob
+    card = torch.device("cuda", 0)
+    mesh = make_mesh(n_dp, n_rs, [card] * (n_dp * n_rs))
+    ctx = ShardedTorchDeviceContext(ref, p, mesh)
+    before = counter.launches
+    got = ctx.extend(*args)
+    assert counter.launches - before == ctx.up_waves * n_rs
+    assert ctx.up_waves >= n_dp
+    on_cpu = ShardedTorchDeviceContext(
+        ref, p, make_mesh(n_dp, n_rs, [torch.device("cpu")] * n_dp * n_rs)
+    ).extend(*args)
+    for part in range(3 if gap else 1):
+        np.testing.assert_array_equal(got[part], want[part])
+        np.testing.assert_array_equal(got[part], on_cpu[part])
