@@ -2,7 +2,8 @@
 
 PyTorch counterpart of ``basal_tpu.align.pipeline``.  The host layers (C++
 engine: encode, seed schedule, candidate groups, replay, SAM formatter) are
-``basal_tpu``'s, used as they are; this module owns what touches the device:
+the port's copies of basal_tpu's (``align.aligner``, ``native``); this
+module owns what touches the device:
 
   host:   batch read -> encode -> seed schedule -> candidate groups
   device: one int32 blob per wave -> CUDA count kernel, or with -g the
@@ -28,19 +29,17 @@ from typing import List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from basal_tpu import malloc_window
-from basal_tpu.align.pipeline import (HOST_EVAL_MIN, SingleEndAligner,
-                                      ThreadedRunner, _inline_tail_enabled,
-                                      _mode_name, stage_report)
-from basal_tpu.config import AlignParams
-from basal_tpu.index.reference import PackedReference, load_reference
-from basal_tpu.index.seedindex import build_index
-from basal_tpu.reads.encode import EncodedBatch
-from basal_tpu.reads.io import open_reads
-from basal_tpu.align.sam import sam_header
-
+from .. import malloc_window
+from ..config import AlignParams
+from ..index.reference import PackedReference, load_reference
+from ..index.seedindex import build_index
 from ..ops.extend import K_POS
 from ..ops.extend_cuda import extend_counts_blob, extend_gap_blob
+from ..reads.encode import EncodedBatch
+from ..reads.io import open_reads
+from .aligner import (HOST_EVAL_MIN, SingleEndAligner, ThreadedRunner,
+                      _inline_tail_enabled, _mode_name, stage_report)
+from .sam import sam_header
 
 #: rowmeta's exception-row field is 12 bits (index + 1): a wave with more
 #: N-containing rows is split at row boundaries (split_waves)
@@ -312,9 +311,9 @@ def host_eval_policy(device: torch.device, n_cands: int) -> bool:
 
 
 class TorchSingleEndAligner(SingleEndAligner):
-    """SingleEndAligner whose device is a torch device: the three members
-    that reach jax in basal_tpu (``dev``, ``_fused_host``,
-    ``_host_eval_policy``) key on ``self.device`` instead."""
+    """SingleEndAligner whose device is a torch device: ``dev``,
+    ``_fused_host`` and ``_host_eval_policy``, which ``align.aligner``
+    leaves out, key on ``self.device``."""
 
     def __init__(self, params: AlignParams, ref: PackedReference, index,
                  use_native: Optional[bool] = None, device=None):
@@ -355,7 +354,8 @@ class TorchSingleEndAligner(SingleEndAligner):
 
 
 class TorchThreadedRunner(ThreadedRunner):
-    """-p worker pool of port aligners (see basal_tpu's ThreadedRunner)."""
+    """-p worker pool of port aligners (see
+    ``align.aligner.ThreadedRunner``)."""
 
     def __init__(self, params, ref, index, n_workers: int, device):
         from concurrent.futures import ThreadPoolExecutor
@@ -434,7 +434,7 @@ def _run_single_end(params, ref_path, reads_path, out_fh, command_line, log,
     if index_factory is not None:
         index = index_factory(ref, params)
     elif params.rrbs_flag:
-        from basal_tpu.index.rrbs import build_rrbs_index
+        from ..index.rrbs import build_rrbs_index
         index = build_rrbs_index(ref_path, ref, params)
     else:
         index = build_index(ref, params)

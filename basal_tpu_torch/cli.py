@@ -4,10 +4,13 @@
 
     python -m basal_tpu_torch.cli -a r1.fq -b r2.fq -d ref.fa -M C:T -S 1 -o out.sam
 
-Takes basal_tpu's flags (its parser is reused) and runs the single-end or,
-with ``-b``, the paired-end aligner on the device named by
-``BASAL_TPU_TORCH_DEVICE`` (default ``cuda``; ``cpu`` runs the kernels'
-plain versions).
+Takes basal_tpu's flags and runs the single-end or, with ``-b``, the
+paired-end aligner on the device named by ``BASAL_TPU_TORCH_DEVICE``
+(default ``cuda``; ``cpu`` runs the kernels' plain versions).
+
+``VERSION``, ``_usage`` and ``parse_args`` are copied from
+``basal_tpu/cli.py`` (lines 15-81) at cb4d597, unchanged: the port imports
+nothing of basal_tpu.
 """
 
 from __future__ import annotations
@@ -15,12 +18,79 @@ from __future__ import annotations
 import sys
 import time
 
-from basal_tpu.cli import _usage, parse_args
-from basal_tpu.config import MAXGAPS, AlignParams
+from .config import MAXGAPS, MAXHITS, AlignParams
+
+VERSION = "1.8.1"  # reference-parity version (main.cpp:48)
+
+
+def _usage():
+    sys.stderr.write(
+        "basal_tpu — TPU-native base-conversion sequencing aligner\n"
+        "Usage: basal-tpu [options]\n"
+        "  -a <str>   input reads FASTA/FASTQ/BAM [required]\n"
+        "  -b <str>   mate reads (paired-end)\n"
+        "  -d <str>   reference FASTA [required]\n"
+        "  -o <str>   output SAM/BAM (default stdout SAM)\n"
+        "  -M <str>   convert-from:convert-to rule, e.g. C:T, A:G, A:CGT, T:- [required]\n"
+        "  -v <float> max mismatches (fraction of length if <1)\n"
+        "  -g <int>   max gap size (<=%d)\n"
+        "  -w <int>   max equal-best hits (<=%d)\n"
+        "  -B/-E <int> first/last read to map\n"
+        "  -I <int>   index interval (1-16)\n"
+        "  -k <float> over-represented kmer cut-off ratio\n"
+        "  -s <int>   seed size (10-16)\n"
+        "  -S <int>   RNG seed (0: clock)\n"
+        "  -p <int>   host worker threads\n"
+        "  -m/-x <int> min/max insert size\n"
+        "  -q/-z/-f/-A/-L  trimming options\n"
+        "  -n [0,1,2] strand protocol (directional/non-directional/PBAT)\n"
+        "  -r [0,1,2] repeat-hit reporting\n"
+        "  -R/-u/-H/-V  reporting options\n" % (MAXGAPS, MAXHITS))
+    sys.exit(1)
+
+
+def parse_args(argv):
+    """Hand-rolled parser mirroring mGetOptions' -x val / -x=val forms."""
+    opts = {}
+    flags = set()
+    i = 0
+    valopts = "abdosMmnxgrVIkvwqfzpABELDS"
+    boolopts = "R3HuN"
+    while i < len(argv):
+        a = argv[i]
+        if not a.startswith("-") or len(a) < 2:
+            sys.stderr.write(f"unknown option: {a}\n")
+            sys.exit(1)
+        c = a[1]
+        if c == "h":
+            _usage()
+        if c in boolopts and len(a) == 2:
+            flags.add(c)
+        elif c in valopts:
+            if len(a) == 2:
+                i += 1
+                if i >= len(argv):
+                    sys.stderr.write(f"missing value for -{c}\n")
+                    sys.exit(1)
+                v = argv[i]
+            elif a[2] == "=":
+                v = a[3:]
+            else:
+                sys.stderr.write(f"unknown option: {a}\n")
+                sys.exit(1)
+            if c == "A":
+                opts.setdefault("A", []).append(v)
+            else:
+                opts[c] = v
+        else:
+            sys.stderr.write(f"unknown option: {a}\n")
+            sys.exit(1)
+        i += 1
+    return opts, flags
 
 
 def params_from_args(argv, opts, flags) -> AlignParams:
-    """AlignParams of parsed flags (the mapping of basal_tpu.cli.main)."""
+    """AlignParams of parsed flags (the mapping of basal_tpu's cli.main)."""
     kw = dict(conversion=opts["M"])
     if "s" in opts:
         kw["seed_size"] = int(opts["s"])
@@ -128,7 +198,7 @@ def main(argv=None):
         runner(getattr(sys.stdout, "buffer", sys.stdout))
         sys.stdout.flush()
     elif out_path.endswith(".bam"):
-        from basal_tpu.toolkit.bamio import BamWriter
+        from .toolkit.bamio import BamWriter
         with BamWriter(out_path) as bw:
             runner(bw)
     else:

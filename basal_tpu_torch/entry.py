@@ -7,9 +7,10 @@
                            n-device (dp, rs) mesh, held element for element
                            against the single context, ungapped and gapped.
 
-Both use ``_tiny_problem`` of the root ``__graft_entry__`` (a 20 kbp
-genome, 64 reads, built through the real host pipeline).  The device is
-``BASAL_TPU_TORCH_DEVICE`` (default ``cuda``):
+Both use ``_problem``, the port's copy of ``_tiny_problem`` of the root
+``__graft_entry__`` (a 20 kbp genome, 64 reads, built through the port's
+host pipeline).  The device is ``BASAL_TPU_TORCH_DEVICE`` (default
+``cuda``):
 
     python -m basal_tpu_torch.entry [N]
     BASAL_TPU_TORCH_DEVICE=cpu python -m basal_tpu_torch.entry 4
@@ -23,9 +24,45 @@ import numpy as np
 import torch
 
 
-def _problem(**kw):
-    from __graft_entry__ import _tiny_problem
-    return _tiny_problem(**kw)
+def _problem(rule="A:G", gap=0, chains=0):
+    """(params, ref, enc, table): a miniature but complete alignment problem
+    built through the port's host layers, the same as ``_tiny_problem`` of
+    ``__graft_entry__`` builds through basal_tpu's."""
+    import os
+    import random
+    import tempfile
+
+    from .align.candidates import SeedScheduler, build_candidates
+    from .align.rng import MyRand
+    from .config import AlignParams
+    from .index.reference import load_reference
+    from .index.seedindex import build_index
+    from .reads.encode import encode_batch
+    from .reads.io import ReadRec
+
+    rng = random.Random(7)
+    genome = "".join(rng.choice("ACGT") for _ in range(20000))
+    fd, path = tempfile.mkstemp(suffix=".fa")
+    with os.fdopen(fd, "w") as f:
+        f.write(">chrE\n")
+        for i in range(0, len(genome), 60):
+            f.write(genome[i:i + 60] + "\n")
+    params = AlignParams(conversion=rule, randseed=1, gap=gap, chains=chains)
+    ref = load_reference(path, params)
+    os.unlink(path)
+    index = build_index(ref, params)
+
+    reads = []
+    for i in range(64):
+        pos = rng.randrange(0, len(genome) - 100)
+        s = "".join("G" if (c == "A" and rng.random() < 0.5) else c
+                    for c in genome[pos:pos + 100])
+        reads.append(ReadRec(index=i, readset=0, name=f"r{i}", seq=s,
+                             qual="I" * 100))
+    enc = encode_batch(params, reads)
+    sched = SeedScheduler(params, index, MyRand(1))
+    table = build_candidates(params, index, enc, sched)
+    return params, ref, enc, table
 
 
 def entry(device=None):
@@ -106,8 +143,9 @@ def main(argv=None) -> int:
     print(f"entry: {counts.numel()} counts on {counts.device}, "
           f"{int((counts == 0).sum())} exact")
     print(f"dryrun_multichip({n}): ok {dryrun_multichip(n)}")
-    if "jax" in sys.modules:
-        raise AssertionError("basal_tpu_torch.entry imported jax")
+    for name in ("jax", "basal_tpu"):
+        if name in sys.modules:
+            raise AssertionError(f"basal_tpu_torch.entry imported {name}")
     return 0
 
 

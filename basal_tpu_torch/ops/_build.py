@@ -5,9 +5,10 @@ source, all started together) and links them into one shared library with
 a plain C interface, loaded with ``ctypes``.  The build runs at
 first use, into ``build/basal_tpu_torch/<hash>/`` at the root of the
 checkout, keyed by a hash of the sources and the flags, so a changed source
-is rebuilt and an unchanged one is loaded as it is.  Nothing is built or
-imported when this module is imported: only the machine with the card has
-``nvcc``.
+is rebuilt and an unchanged one is loaded as it is.  ``ptxas -v``'s report
+of each kernel's registers, shared memory, stack frame and spills is kept
+beside the library (``resource_report``).  Nothing is built or imported
+when this module is imported: only the machine with the card has ``nvcc``.
 """
 
 from __future__ import annotations
@@ -24,8 +25,9 @@ _PKG = Path(__file__).resolve().parents[1]
 SRC_DIR = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "basal_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libbasal_tpu_torch_kernels.so"
+REPORT_NAME = "ptxas.log"
 
 _lock = threading.Lock()
 _lib = None
@@ -55,20 +57,23 @@ def library_path() -> Path:
     return BUILD_ROOT / h.hexdigest()[:16] / LIB_NAME
 
 
-def _run_all(cmds):
+def _run_all(cmds) -> str:
     """Run the commands side by side; wait for every one, then raise with
-    the output of the first that failed."""
+    the output of the first that failed.  Returns their output, joined."""
     procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                     stderr=subprocess.STDOUT, text=True))
              for cmd in cmds]
     failed = None
+    outs = []
     for cmd, proc in procs:
         out, _ = proc.communicate()
+        outs.append(out)
         if proc.returncode != 0 and failed is None:
             failed = (cmd, proc.returncode, out)
     if failed is not None:
         cmd, rc, out = failed
         raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}")
+    return "".join(outs)
 
 
 def _build(so: Path) -> None:
@@ -78,15 +83,23 @@ def _build(so: Path) -> None:
     srcs = [s for s in _sources() if s.suffix == ".cu"]
     objs = [so.with_name(f".{s.stem}.{tag}.o") for s in srcs]
     tmp = so.with_name(f".{so.name}.{tag}")
+    tmp_report = so.with_name(f".{REPORT_NAME}.{tag}")
     try:
-        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
-                  for s, o in zip(srcs, objs)])
+        report = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+                           for s, o in zip(srcs, objs)])
         _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
                    *map(str, objs)]])
+        tmp_report.write_text(report)
+        os.replace(tmp_report, so.with_name(REPORT_NAME))
         os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
     finally:
-        for f in objs + [tmp]:
+        for f in objs + [tmp, tmp_report]:
             f.unlink(missing_ok=True)
+
+
+def resource_report() -> str:
+    """``ptxas -v``'s output for the current sources, from their build."""
+    return library_path().with_name(REPORT_NAME).read_text()
 
 
 def load() -> ctypes.CDLL:

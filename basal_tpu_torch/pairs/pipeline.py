@@ -1,15 +1,15 @@
 """Paired-end alignment pipeline on a PyTorch device.
 
 PyTorch counterpart of ``basal_tpu.pairs.pipeline``.  The lockstep pairing,
-replay and PE SAM formatter are ``basal_tpu``'s, used as they are; this
-module owns what touches the device.  Both mates' candidate waves go
-through one ``TorchDeviceContext`` (the count kernel, or with ``-g`` the
-gap kernel), on the device named as for single-end
-(``align.pipeline.resolve_device``).
+replay and PE SAM formatter are the port's copies of basal_tpu's
+(``pairs.aligner``, ``native``); this module owns what touches the device.
+Both mates' candidate waves go through one ``TorchDeviceContext`` (the
+count kernel, or with ``-g`` the gap kernel), on the device named as for
+single-end (``align.pipeline.resolve_device``).
 
-Two methods of basal_tpu's PairEndAligner are re-hosted here line for line,
-because they call its module-level placement policy, which decides on
-``JAX_PLATFORMS``; here the port's policy decides on the torch device.
+Two methods of basal_tpu's PairEndAligner, which ``pairs.aligner`` leaves
+out, are re-hosted here line for line with the port's placement policy,
+which decides on the torch device.
 Several visible cards give the sharded context (``parallel.mesh``), and
 ``run_pair_end``'s ``index_factory`` takes the routed index of a
 multi-process run (``parallel.multihost``).
@@ -24,19 +24,17 @@ from typing import Optional
 
 import numpy as np
 
-from basal_tpu import malloc_window
-from basal_tpu.align.pipeline import _maybe_start_thp
-from basal_tpu.align.sam import sam_header
-from basal_tpu.config import AlignParams
-from basal_tpu.index.reference import load_reference
-from basal_tpu.index.seedindex import build_index
-from basal_tpu.pairs.pipeline import (PairEndAligner, PairThreadedRunner,
-                                      _pe_stage_report)
-from basal_tpu.reads.encode import encode_batch
-from basal_tpu.reads.io import RawBatch, open_reads
-
+from .. import malloc_window
+from ..align.aligner import _maybe_start_thp
 from ..align.pipeline import (TorchDeviceContext, device_context,
                               host_eval_policy, resolve_device)
+from ..align.sam import sam_header
+from ..config import AlignParams
+from ..index.reference import load_reference
+from ..index.seedindex import build_index
+from ..reads.encode import encode_batch
+from ..reads.io import RawBatch, open_reads
+from .aligner import PairEndAligner, PairThreadedRunner, _pe_stage_report
 
 
 class TorchPairEndAligner(PairEndAligner):
@@ -101,8 +99,8 @@ class TorchPairEndAligner(PairEndAligner):
     def _align_batch_native(self, enc_a, enc_b, built_a=None) -> bytes:
         """basal_tpu's PairEndAligner._align_batch_native (lazy lockstep or
         bulk waves of both mates), placement by the port's policy."""
-        from basal_tpu.native import (host_eval_candidates,
-                                      host_eval_candidates_gap, replay_pe)
+        from ..native import (host_eval_candidates,
+                              host_eval_candidates_gap, replay_pe)
         p = self.p
         B = len(enc_a.reads)
         if p.rrbs_flag:
@@ -166,8 +164,9 @@ class TorchPairEndAligner(PairEndAligner):
 
 
 class TorchPairThreadedRunner(PairThreadedRunner):
-    """-p worker pool of port PE aligners (see basal_tpu's
-    PairThreadedRunner): one aligner per worker, output in batch order."""
+    """-p worker pool of port PE aligners (see
+    ``pairs.aligner.PairThreadedRunner``): one aligner per worker, output in
+    batch order."""
 
     def __init__(self, params, ref, index, n_workers: int, device):
         from concurrent.futures import ThreadPoolExecutor
@@ -218,7 +217,7 @@ def _run_pair_end(params, ref_path, reads_a_path, reads_b_path, out_fh,
     if index_factory is not None:
         index = index_factory(ref, params)
     elif params.rrbs_flag:
-        from basal_tpu.index.rrbs import build_rrbs_index
+        from ..index.rrbs import build_rrbs_index
         index = build_rrbs_index(ref_path, ref, params)
     else:
         index = build_index(ref, params)

@@ -36,12 +36,11 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from basal_tpu.align.pipeline import _mode_name
-from basal_tpu.config import AlignParams
-from basal_tpu.index.reference import PackedReference
-
+from ..align.aligner import _mode_name
 from ..align.pipeline import (TorchDeviceContext, _Wave, blob_to_device,
                               download, resolve_device)
+from ..config import AlignParams
+from ..index.reference import PackedReference
 from ..ops.bitops import M32
 from ..ops.extend_cuda import extend_counts_blob, extend_gap_blob
 

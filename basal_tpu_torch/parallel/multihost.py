@@ -12,7 +12,8 @@ What is re-hosted here is what reached jax there: process rank and count,
 the cross-process all-gather, ``init_multihost``, ``make_multihost_mesh``
 and ``read_window``.  The routing protocol itself (``_round_inner``,
 ``_fill``, ``_answer_one``, the service thread, ``ensure_batch``,
-``wait_batch``, ``drain``) is basal_tpu's ``RoutedSeedIndex``, inherited.
+``wait_batch``, ``drain``) is inherited from ``parallel.routed``, the
+port's copy of basal_tpu's ``RoutedSeedIndex``.
 
 Routing payloads are host arrays, so the routing always runs on a process
 group of its own with the gloo backend, whatever backend the default group
@@ -31,14 +32,13 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from basal_tpu.config import AlignParams
-from basal_tpu.index.reference import PackedReference
-from basal_tpu.index.seedindex import _kmer_cutoff
-from basal_tpu.index.sharded import IndexShard, build_shard
-from basal_tpu.parallel.multihost import RoutedSeedIndex
-
 from ..align.pipeline import resolve_device
+from ..config import AlignParams
+from ..index.reference import PackedReference
+from ..index.seedindex import _kmer_cutoff
+from ..index.sharded import IndexShard, build_shard
 from .mesh import TorchMesh
+from .routed import RoutedSeedIndex
 
 BACKENDS = ("gloo", "nccl")
 
@@ -99,7 +99,7 @@ def _allgather_ragged(x: np.ndarray, coll: _Collectives) -> List[np.ndarray]:
 
 
 class TorchRoutedSeedIndex(RoutedSeedIndex):
-    """basal_tpu's RoutedSeedIndex with its collectives on
+    """``parallel.routed.RoutedSeedIndex`` with its collectives on
     torch.distributed: rank and count from the default process group, the
     routing rounds on a new gloo group made here, so every process must
     construct its index at the same point of its run.  ``num_shards`` /
@@ -129,7 +129,7 @@ class TorchRoutedSeedIndex(RoutedSeedIndex):
         self.n1 = np.zeros(nk, dtype=np.int32)
         self._have = np.zeros(nk, dtype=bool)
         try:
-            from basal_tpu.native import madvise_hugepage
+            from ..native import madvise_hugepage
             for a in (self.starts, self.counts, self.n1, self._have):
                 madvise_hugepage(a)
         except Exception:  # noqa: BLE001 - advisory only

@@ -23,7 +23,7 @@ path, "reads": path, "reads_b": path (paired-end), "n_reads": int,
 dp rows of the mesh check (default 2), "cpus": per-PID core lists,
 "mesh_check": bool, "cmdline": str, "debug": bool}.  With device "cuda"
 each process takes card PID % (cards visible).  The process fails if it
-imported jax.
+imported jax or basal_tpu.
 """
 
 import json
@@ -45,8 +45,7 @@ def main(argv=None) -> int:
 
     import torch
 
-    from basal_tpu.config import AlignParams
-
+    from ..config import AlignParams
     from ..ops.extend_cuda import extend_counts_blob, extend_gap_blob
     from .multihost import TorchRoutedSeedIndex, init_multihost, read_window
 
@@ -137,8 +136,9 @@ def main(argv=None) -> int:
 
     import torch.distributed as dist
     dist.destroy_process_group()
-    if "jax" in sys.modules:
-        raise AssertionError("the port's worker imported jax")
+    for name in ("jax", "basal_tpu"):
+        if name in sys.modules:
+            raise AssertionError(f"the port's worker imported {name}")
     (workdir / f"stats_p{pid}.json").write_text(json.dumps(stats))
     print(f"[p{pid}] done: {json.dumps(stats)}", flush=True)
     return 0
@@ -150,14 +150,13 @@ def _mesh_check(ref, params, cfg, device):
     builds it from the same first 256 reads and a dense index)."""
     import numpy as np
 
-    from basal_tpu.align.candidates import SeedScheduler, build_candidates
-    from basal_tpu.align.rng import MyRand
-    from basal_tpu.index.seedindex import build_index
-    from basal_tpu.reads.encode import encode_batch
-    from basal_tpu.reads.io import open_reads
-
+    from ..align.candidates import SeedScheduler, build_candidates
     from ..align.pipeline import TorchDeviceContext
+    from ..align.rng import MyRand
+    from ..index.seedindex import build_index
     from ..ops.extend_cuda import extend_counts_blob, extend_gap_blob
+    from ..reads.encode import encode_batch
+    from ..reads.io import open_reads
     from .mesh import ShardedTorchDeviceContext
     from .multihost import make_multihost_mesh
 

@@ -6,14 +6,17 @@
 Phases (any failure raises and the script exits non-zero):
   0. setup: a CUDA card must be present; prints its nvidia-smi name and
      power limit and the torch / CUDA versions;
-  1. build: nvcc builds the CUDA kernels from basal_tpu_torch/csrc;
+  1. build: nvcc builds the CUDA kernels from basal_tpu_torch/csrc while
+     g++ builds the port's C++ host engine (basal_tpu_torch/native); both
+     times are printed;
   2. kernels vs plain versions on the card: every wave of a real batch
      must equal the plain PyTorch version exactly.  Count kernel: reads of
      64-150 bp, some with Ns, under C:T, A:CGT, C:T -3 and A:G -N.  Gap
      kernel: the same with planted deletions and insertions, under T:- -g 3,
      C:T -g 1, A:CGT -g 2 and C:T -3 -g 2.  Then each kernel and its plain
      version are timed at C = 2^20 candidates, W = 7 words (100 bp),
-     U = 8192 rows (the gap kernel at gap 3);
+     U = 8192 rows (the gap kernel at gap 3), beside the least time the
+     card could take for the same work (``bound``);
   2b. the dp x rs mesh: on real waves (count kernel under C:T, gap kernel
      under T:- -g 3), ShardedTorchDeviceContext at 1x4, 2x2 and 4x1 over
      [cuda:i % cards] must equal TorchDeviceContext element for element,
@@ -36,7 +39,7 @@ Phases (any failure raises and the script exits non-zero):
      byte-identical to phase 3's device-forced SAM, and the rs mesh that
      spans the two processes must equal the single context;
   3e. dryrun_multichip(4) of basal_tpu_torch.entry over [cuda:i % cards];
-  4. jax must never have been imported.
+  4. neither jax nor basal_tpu may have been imported.
 
 Each path of phase 3 starts with every launch count at 0; a path fails if
 its kernel did not launch once per device wave.
@@ -68,10 +71,49 @@ PHASE2_GAP = [("T:-", 3, False), ("C:T", 1, False), ("A:CGT", 2, False),
               ("C:T", 2, True)]            # (rule, gap, nt3)
 BENCH_C, BENCH_W, BENCH_U, BENCH_GAP = 1 << 20, 7, 8192, 3
 NT = b"ACGT"
+# an H100 SXM's published peaks (700 W): device memory, and 32-bit lanes
+# outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+LANE_OPS_PER_S = 67e12
+# integer operations per read word of one alignment (funnel shift, rule,
+# masks, lane bits, popcount), and per position a bit walk extracts,
+# counted from csrc/count_kernel.cu and csrc/gap_kernel.cu
+OPS_PER_WORD = 16
+OPS_PER_POSITION = 4
 
 
 def log(msg):
     print(f"[chip_smoke] {msg}", flush=True)
+
+
+def kernel_resources(report):
+    """ptxas -v's registers, shared memory, stack frame and spill bytes of
+    each kernel instantiation, by "kernel<mode id>"."""
+    import re
+    res, cur = {}, None
+    for line in report.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(_Z\w+)", line)
+        if m:
+            name = m.group(1)
+            k = re.search(r"(count_blob_kernel|gap_blob_kernel)ILi(\d+)E",
+                          name)
+            cur = res.setdefault(f"{k.group(1)}<{k.group(2)}>", {}) \
+                if k else None
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_st=int(m.group(2)),
+                       spill_ld=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(m.group(1)) if m else 0
+    return res
 
 
 def nvidia_smi_line() -> str:
@@ -244,11 +286,11 @@ def wave_candidates(p, fasta, fq, device):
     every candidate of every stratum, as the device-forced path ships
     them."""
     import numpy as np
-    from basal_tpu.index.reference import load_reference
-    from basal_tpu.index.seedindex import build_index
-    from basal_tpu.reads.encode import encode_batch
-    from basal_tpu.reads.io import open_reads
     from basal_tpu_torch.align.pipeline import TorchSingleEndAligner
+    from basal_tpu_torch.index.reference import load_reference
+    from basal_tpu_torch.index.seedindex import build_index
+    from basal_tpu_torch.reads.encode import encode_batch
+    from basal_tpu_torch.reads.io import open_reads
     ref = load_reference(str(fasta), p)
     aligner = TorchSingleEndAligner(p, ref, build_index(ref, p),
                                     device=device)
@@ -268,8 +310,8 @@ def kernel_checks(fasta, g, work, device, n_reads=WAVE_READS):
     Returns the largest absolute difference (0 when all are equal)."""
     import numpy as np
     import torch
-    from basal_tpu.config import AlignParams
     from basal_tpu_torch.align.pipeline import blob_to_device
+    from basal_tpu_torch.config import AlignParams
     from basal_tpu_torch.ops.extend import extend_kernel_blob
     from basal_tpu_torch.ops.extend_cuda import extend_counts_blob
 
@@ -316,8 +358,8 @@ def gap_kernel_checks(fasta, g, work, device, n_reads=WAVE_READS):
     difference (0 when all are equal)."""
     import numpy as np
     import torch
-    from basal_tpu.config import AlignParams
     from basal_tpu_torch.align.pipeline import blob_to_device
+    from basal_tpu_torch.config import AlignParams
     from basal_tpu_torch.ops.extend import (K_POS, candidate_rows,
                                             carve_blob, extend_kernel_blob)
     from basal_tpu_torch.ops.extend_cuda import extend_gap_blob
@@ -395,6 +437,31 @@ def synthetic_wave(mode, device, C=BENCH_C, W=BENCH_W, U=BENCH_U,
             dict(mode=mode, W=W, nw=nw, C=C, U=U, E=1))
 
 
+def bound(blob, shape, gap=0):
+    """(ms, "bytes" or "operations"): the least time the card could take for
+    one call at this wave: every byte the call must move (the blob, each
+    distinct reference word its windows touch, the outputs) over the
+    memory rate, against its integer operations over the lane rate."""
+    import torch
+    C, W, nw = shape["C"], shape["W"], shape["nw"]
+    locp = blob[:C].long() & 0xFFFFFFFF
+    first = (locp >> 31) * nw + ((locp & 0x7FFFFFFF) >> 4)
+    # the count kernel reads words first..first+W, the gap kernel one more
+    # on either side
+    span = torch.arange(-1, W + 2, device=blob.device) if gap else \
+        torch.arange(0, W + 1, device=blob.device)
+    words = (first[:, None] + span[None, :]).clamp_(0, 2 * nw - 1)
+    n_words = int(torch.unique(words).numel())
+    out = C * (1 + 2 * 14 + 2 * gap * 14 * 2) if gap else C
+    nbytes = blob.numel() * 4 + 4 * n_words + out
+    aligns = 1 + 2 * gap
+    ops = C * W * aligns * OPS_PER_WORD + C * 14 * aligns * OPS_PER_POSITION \
+        * (gap > 0)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / LANE_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def time_ms(fn, iters):
     """Mean ms per call on the card (CUDA events, after one warm-up)."""
     import torch
@@ -431,10 +498,13 @@ def kernel_timing(device):
         k2 = time_ms(kern, 50)
         p2 = time_ms(plain, 5)
         scale = (1 << 20) / shape["C"]
-        out[mode] = ((k1 + k2) / 2 * scale, (p1 + p2) / 2 * scale)
+        b_ms, b_by = bound(blob, shape)
+        out[mode] = ((k1 + k2) / 2 * scale, (p1 + p2) / 2 * scale,
+                     b_ms * scale, b_by)
         log(f"timing [{mode}] C={shape['C']} W={shape['W']} U={shape['U']}: "
             f"kernel {k1 * scale:.4f} / {k2 * scale:.4f} ms, plain "
-            f"{p1 * scale:.4f} / {p2 * scale:.4f} ms per 2^20 candidates")
+            f"{p1 * scale:.4f} / {p2 * scale:.4f} ms, bound "
+            f"{b_ms * scale:.4f} ms ({b_by}) per 2^20 candidates")
         del ref32, blob
         torch.cuda.empty_cache()
     return out
@@ -460,12 +530,16 @@ def gap_kernel_timing(device):
     k2 = time_ms(kern, 20)
     p2 = time_ms(plain, 3)
     scale = (1 << 20) / shape["C"]
+    b_ms, b_by = bound(blob, shape, gap=BENCH_GAP)
     log(f"timing [gap {BENCH_GAP} oneway] C={shape['C']} W={shape['W']} "
         f"U={shape['U']}: kernel {k1 * scale:.4f} / {k2 * scale:.4f} ms, "
-        f"plain {p1 * scale:.4f} / {p2 * scale:.4f} ms per 2^20 candidates")
+        f"plain {p1 * scale:.4f} / {p2 * scale:.4f} ms, bound "
+        f"{b_ms * scale:.4f} ms ({b_by}), kernel at "
+        f"{100 * b_ms * 2 / (k1 + k2):.1f}% of it, per 2^20 candidates")
     del ref32, blob
     torch.cuda.empty_cache()
-    return (k1 + k2) / 2 * scale, (p1 + p2) / 2 * scale
+    return ((k1 + k2) / 2 * scale, (p1 + p2) / 2 * scale, b_ms * scale,
+            b_by)
 
 
 def device_profile(run):
@@ -501,10 +575,9 @@ def device_vs_host(label, argv, files, fasta, work, device, n_reads,
     The SAM bodies must be byte-identical, and ``kernel``'s launches must
     equal the device waves.  With ``profile``, the device-forced run once
     more under torch.profiler."""
-    from basal_tpu.cli import parse_args
     from basal_tpu_torch.align.pipeline import (TorchDeviceContext,
                                                 run_single_end)
-    from basal_tpu_torch.cli import params_from_args
+    from basal_tpu_torch.cli import params_from_args, parse_args
     from basal_tpu_torch.ops.extend_cuda import (extend_counts_blob,
                                                  extend_gap_blob)
     from basal_tpu_torch.pairs.pipeline import run_pair_end
@@ -608,8 +681,8 @@ def mesh_checks(fasta, g, work, device, n_reads=WAVE_READS):
     run is timed.  Returns {kernel: {"single": ms per wave, "1x4": ...}}."""
     import numpy as np
     import torch
-    from basal_tpu.config import AlignParams
     from basal_tpu_torch.align.pipeline import TorchDeviceContext
+    from basal_tpu_torch.config import AlignParams
     from basal_tpu_torch.ops.extend_cuda import (extend_counts_blob,
                                                  extend_gap_blob)
     from basal_tpu_torch.parallel.mesh import (ShardedTorchDeviceContext,
@@ -774,15 +847,37 @@ def main() -> int:
         f"python {sys.version.split()[0]} device "
         f"{torch.cuda.get_device_name(0)}")
 
-    # phase 1: build
+    # phase 1: build the kernels and the host engine side by side
+    from concurrent.futures import ThreadPoolExecutor
+
+    from basal_tpu_torch import native
     from basal_tpu_torch.ops import _build
-    so = _build.library_path()
-    built = not so.exists()
-    t0 = time.perf_counter()
-    _build.load()
-    log(f"kernel library {so.relative_to(ROOT)} "
-        f"{'built' if built else 'loaded'} in "
-        f"{time.perf_counter() - t0:.3f} s")
+
+    def timed(load):
+        t0 = time.perf_counter()
+        lib = load()
+        return lib, time.perf_counter() - t0
+
+    libs = {"kernel library": (_build.library_path(), _build.load),
+            "host engine": (native.library_path(), native.get_lib)}
+    built = {k: not so.exists() for k, (so, _) in libs.items()}
+    with ThreadPoolExecutor(2) as pool:
+        futs = {k: pool.submit(timed, load) for k, (_, load) in libs.items()}
+        for k, fut in futs.items():
+            lib, secs = fut.result()
+            if lib is None:
+                raise AssertionError(f"the {k} did not build")
+            log(f"{k} {libs[k][0].relative_to(ROOT)} "
+                f"{'built' if built[k] else 'loaded'} in {secs:.3f} s")
+    # modes 0, 1, 2: oneway, multiway, nt3; W is a runtime argument, so each
+    # instantiation is the one every W launches
+    resources = kernel_resources(_build.resource_report())
+    for name, r in sorted(resources.items()):
+        log(f"ptxas {name}: {r}")
+    gap_res = [r for n, r in resources.items() if n.startswith("gap")]
+    if len(gap_res) != 3 or any(r.get("stack", 1) or r.get("spill_st", 1)
+                                or r.get("spill_ld", 1) for r in gap_res):
+        raise AssertionError(f"gap kernel uses local memory: {resources}")
 
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_",
@@ -822,9 +917,10 @@ def main() -> int:
         multi = multiprocess_run(fasta, fq, work, work / "se A:G_0.sam")
         dryrun()
 
-    # phase 4: no jax
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
+    # phase 4: neither jax nor the JAX package
+    for name in ("jax", "basal_tpu"):
+        if name in sys.modules:
+            raise AssertionError(f"{name} was imported")
 
     for label, r, n, unit in (("se A:G", main, N_READS, "reads"),
                               ("se T:- -g 3", bid, N_READS, "reads"),
@@ -850,12 +946,16 @@ def main() -> int:
         "source": "basal_tpu_torch/csrc/count_kernel.cu",
         "replaces": "basal_tpu/ops/extend_pallas.py:35",
         "launches": main["launches"], "max_abs_err": worst,
-        "ms": times["oneway"][0], "plain_ms": times["oneway"][1]}, {
+        "ms": times["oneway"][0], "plain_ms": times["oneway"][1],
+        "bound_ms": times["oneway"][2], "bound_by": times["oneway"][3],
+        "library_ms": None}, {
         "name": "gap_blob_kernel", "route": "cuda",
         "source": "basal_tpu_torch/csrc/gap_kernel.cu",
         "replaces": "basal_tpu/ops/extend_pallas.py:137",
         "launches": bid["launches"], "max_abs_err": worst_gap,
-        "ms": gap_times[0], "plain_ms": gap_times[1]}]
+        "ms": gap_times[0], "plain_ms": gap_times[1],
+        "bound_ms": gap_times[2], "bound_by": gap_times[3],
+        "library_ms": None}]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -24,17 +24,18 @@ def cuda():
     return torch.device("cuda")
 
 
-def _random_blob(mode, C, U, W, E, nw, seed):
-    """A wave blob with random rows: read lengths 0..16*W, N-counts, E
-    exception rows, candidates spread over both planes and the whole
-    reference (margins included)."""
+def _random_blob(mode, C, U, W, E, nw, seed, readlen=None):
+    """A wave blob with random rows: read lengths 0..16*W (every row
+    ``readlen`` when given), N-counts, E exception rows, candidates spread
+    over both planes and the whole reference (margins included)."""
     from basal_tpu_torch.ops.extend_cuda import blob_words
     rng = np.random.default_rng(seed)
     loc = rng.integers(0, 16 * (nw - W - 1), C).astype(np.uint32)
     plane = rng.integers(0, 2, C).astype(np.uint32)
     cuts = np.sort(rng.integers(1, C, U - 1)) if U > 1 else np.zeros(0, int)
     row_off = np.concatenate([[0], cuts, [C]]).astype(np.int32)
-    readlen = rng.integers(0, 16 * W + 1, U).astype(np.uint32)
+    readlen = (rng.integers(0, 16 * W + 1, U) if readlen is None
+               else np.full(U, readlen)).astype(np.uint32)
     ncnt = rng.integers(0, 8, U).astype(np.uint32)
     exc = np.zeros(U, np.uint32)
     rows = rng.choice(U, size=min(E, U), replace=False)
@@ -126,6 +127,57 @@ def test_gap_kernel_equals_plain(cuda, mode, gap, C, U, W, E):
         assert torch.equal(g.cpu(), c), name
 
 
+def _gap_against_plain(cuda, ref32, blob, shape):
+    """The gap kernel's (counts, pos0, pos1) on the card, asserted equal to
+    the plain version's on the same tensors; returned on the CPU."""
+    from basal_tpu_torch.ops.extend import extend_kernel_blob
+    from basal_tpu_torch.ops.extend_cuda import extend_gap_blob
+    r, b = torch.from_numpy(ref32).to(cuda), torch.from_numpy(blob).to(cuda)
+    before = extend_gap_blob.launches
+    got = extend_gap_blob(r, b, **shape)
+    torch.cuda.synchronize()
+    assert extend_gap_blob.launches == before + 1
+    want = extend_kernel_blob(r, b, **shape)
+    for name, g, w in zip(("counts", "pos0", "pos1"), got, want):
+        assert torch.equal(g, w), name
+    return [t.cpu() for t in got]
+
+
+@pytest.mark.parametrize("mode", ["oneway", "multiway", "nt3"])
+@pytest.mark.parametrize("C", [127, 128, 129, 257, 256 * 40 + 1])
+def test_gap_kernel_block_boundaries(cuda, mode, C):
+    """Waves that end on either side of a block of 128 candidates, at gap 3
+    and W 30 (the largest output tiles and window): the last block copies
+    only its own candidates' spans, its tail narrower than 16 bytes."""
+    ref32, blob, shape = _random_blob(mode, C, max(1, C // 5), 30, 3,
+                                      nw=1 << 14, seed=C)
+    _gap_against_plain(cuda, ref32, blob, {**shape, "gap": 3})
+
+
+@pytest.mark.parametrize("mode", ["oneway", "multiway", "nt3"])
+def test_gap_kernel_every_list_full(cuda, mode):
+    """Rows of 480 random bases against random reference words: every main
+    and shifted alignment has at least 14 mismatches, so every list holds
+    14 positions and none is padding."""
+    W, C = 30, 4099
+    ref32, blob, shape = _random_blob(mode, C, 41, W, 1, nw=1 << 14, seed=9,
+                                      readlen=16 * W)
+    _cnt, pos0, pos1 = _gap_against_plain(cuda, ref32, blob,
+                                          {**shape, "gap": 3})
+    assert (pos0 < 16 * W).all() and (pos1 < 16 * W).all()
+
+
+@pytest.mark.parametrize("mode", ["oneway", "multiway", "nt3"])
+def test_gap_kernel_every_list_padding(cuda, mode):
+    """Rows of read length 0: no lane lies under the length mask, so every
+    list is 14 entries of padding (the read length, 0)."""
+    ref32, blob, shape = _random_blob(mode, 1000, 7, 7, 2, nw=1 << 14,
+                                      seed=3, readlen=0)
+    _cnt, pos0, pos1 = _gap_against_plain(cuda, ref32, blob,
+                                          {**shape, "gap": 3})
+    assert (pos0 == 0).all() and (pos1 == 0).all()
+
+
 def test_gap_empty_wave_does_not_launch(cuda):
     from basal_tpu_torch.ops.extend_cuda import extend_gap_blob
     ref32 = torch.zeros(512, dtype=torch.int32, device=cuda)
@@ -171,7 +223,7 @@ def test_pipeline_cuda_equals_cpu(cuda, tmp_path, monkeypatch, rule, nt3,
                                   n_mis):
     """run_single_end, device forced: the same SAM on the card as with the
     plain version on the CPU, every wave through the kernel."""
-    from basal_tpu.config import AlignParams
+    from basal_tpu_torch.config import AlignParams
     from basal_tpu_torch.align.pipeline import run_single_end
     from basal_tpu_torch.ops.extend_cuda import extend_counts_blob
     _tiny_data(tmp_path, rule)
@@ -198,7 +250,7 @@ def test_gapped_pipeline_cuda_equals_cpu(cuda, tmp_path, monkeypatch, rule,
                                          gap):
     """Gapped run_single_end, device forced: every wave through the gap
     kernel, the same SAM as the plain gap core on the CPU."""
-    from basal_tpu.config import AlignParams
+    from basal_tpu_torch.config import AlignParams
     from basal_tpu_torch.align.pipeline import run_single_end
     from basal_tpu_torch.ops.extend_cuda import extend_gap_blob
     _tiny_data(tmp_path, "T:T" if rule == "T:-" else rule)  # no-op conversion
@@ -225,7 +277,7 @@ def test_gapped_pipeline_cuda_equals_cpu(cuda, tmp_path, monkeypatch, rule,
 def test_pair_end_cuda_equals_cpu(cuda, tmp_path, monkeypatch, gap):
     """run_pair_end, device forced: both mates' waves through the count
     (gap 0) or gap kernel, the same SAM as on the CPU."""
-    from basal_tpu.config import AlignParams
+    from basal_tpu_torch.config import AlignParams
     from basal_tpu_torch.ops.extend_cuda import (extend_counts_blob,
                                                  extend_gap_blob)
     from basal_tpu_torch.pairs.pipeline import run_pair_end
@@ -270,13 +322,14 @@ def test_pair_end_cuda_equals_cpu(cuda, tmp_path, monkeypatch, gap):
 def _candidates(tmp_path, rule, gap):
     """(params, reference, encoded batch, candidate table) of _tiny_data's
     reads: every candidate of every stratum."""
-    from basal_tpu.align.candidates import SeedScheduler, build_candidates
-    from basal_tpu.align.rng import MyRand
-    from basal_tpu.config import AlignParams
-    from basal_tpu.index.reference import load_reference
-    from basal_tpu.index.seedindex import build_index
-    from basal_tpu.reads.encode import encode_batch
-    from basal_tpu.reads.io import open_reads
+    from basal_tpu_torch.align.candidates import (SeedScheduler,
+                                                  build_candidates)
+    from basal_tpu_torch.align.rng import MyRand
+    from basal_tpu_torch.config import AlignParams
+    from basal_tpu_torch.index.reference import load_reference
+    from basal_tpu_torch.index.seedindex import build_index
+    from basal_tpu_torch.reads.encode import encode_batch
+    from basal_tpu_torch.reads.io import open_reads
     _tiny_data(tmp_path, "T:T" if rule == "T:-" else rule)
     p = AlignParams(conversion=rule, randseed=11, gap=gap)
     ref = load_reference(str(tmp_path / "ref.fa"), p)

@@ -49,10 +49,10 @@ def test_resolve_device_cuda_without_card_raises(no_card, monkeypatch):
 
 
 def test_aligner_cuda_without_card_raises(no_card, tmp_path, rng):
-    from basal_tpu.config import AlignParams
-    from basal_tpu.index.reference import load_reference
-    from basal_tpu.index.seedindex import build_index
     from basal_tpu_torch.align.pipeline import TorchSingleEndAligner
+    from basal_tpu_torch.config import AlignParams
+    from basal_tpu_torch.index.reference import load_reference
+    from basal_tpu_torch.index.seedindex import build_index
     from conftest import make_ref, random_genome
     make_ref(tmp_path / "ref.fa", [("c1", random_genome(rng, 6000))])
     p = AlignParams(conversion="C:T", randseed=1)

@@ -69,8 +69,8 @@ def test_profile_hook_writes_chrome_trace(tmp_path, rng, monkeypatch):
     """BASAL_TPU_PROFILE=<dir>: torch.profiler around run_single_end; the
     trace holds the run's device waves (the plain count core on the
     CPU), and the SAM is the unprofiled run's."""
-    from basal_tpu.config import AlignParams
     from basal_tpu_torch.align.pipeline import run_single_end
+    from basal_tpu_torch.config import AlignParams
     g = random_genome(rng, 6000)
     make_ref(tmp_path / "ref.fa", [("chrT", g)])
     make_fastq(tmp_path / "reads.fq",

@@ -110,8 +110,8 @@ def test_auto_mesh_shape_equals_basal_tpu():
 
 
 def _tiny_ref(tmp_path, rng):
-    from basal_tpu.config import AlignParams
-    from basal_tpu.index.reference import load_reference
+    from basal_tpu_torch.config import AlignParams
+    from basal_tpu_torch.index.reference import load_reference
     make_ref(tmp_path / "ref.fa", [("chr1", _repeat_genome(rng, 4000,
                                                            copies=4))])
     p = AlignParams(conversion="C:T", randseed=1)
@@ -191,7 +191,7 @@ def test_cli_with_mesh_selected_writes_single_context_sam(tmp_path, rng,
 
 def test_pe_aligner_takes_the_mesh(tmp_path, rng, monkeypatch):
     """The PE aligner's dev goes through the same selection."""
-    from basal_tpu.index.seedindex import build_index
+    from basal_tpu_torch.index.seedindex import build_index
     from basal_tpu_torch.pairs.pipeline import TorchPairEndAligner
     from basal_tpu_torch.parallel import mesh
     p, ref = _tiny_ref(tmp_path, rng)

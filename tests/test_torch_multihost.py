@@ -78,10 +78,11 @@ def _se_fixture(tmp_path, rng, n_reads, genome_bp):
 def _single_runs(tmp_path, params_kw, monkeypatch, pairs=False):
     """(the port's single-process SAM, device-forced on the CPU;
     basal_tpu's SAM)."""
-    from basal_tpu.config import AlignParams
     from basal_tpu.align.pipeline import run_single_end as jax_se
+    from basal_tpu.config import AlignParams as JaxParams
     from basal_tpu.pairs.pipeline import run_pair_end as jax_pe
     from basal_tpu_torch.align.pipeline import run_single_end
+    from basal_tpu_torch.config import AlignParams
     from basal_tpu_torch.pairs.pipeline import run_pair_end
 
     params = AlignParams(**params_kw)
@@ -95,8 +96,8 @@ def _single_runs(tmp_path, params_kw, monkeypatch, pairs=False):
         device="cpu")
     monkeypatch.delenv("BASAL_TPU_HOST_EVAL")
     jax = io.BytesIO()
-    (jax_pe if pairs else jax_se)(params, ref, *files, out_fh=jax,
-                                  command_line="basal-tpu")
+    (jax_pe if pairs else jax_se)(JaxParams(**params_kw), ref, *files,
+                                  out_fh=jax, command_line="basal-tpu")
     return port.getvalue(), jax.getvalue()
 
 
@@ -187,18 +188,22 @@ def test_two_process_pe_equals_single(tmp_path, rng, monkeypatch):
 
 def test_routed_index_matches_dense_single_process(tmp_path, rng):
     """TorchRoutedSeedIndex with one shard fills, for every queried k-mer,
-    the dense index's entries (no process group needed)."""
-    from basal_tpu.config import AlignParams
-    from basal_tpu.index.reference import load_reference
+    basal_tpu's dense index's entries (no process group needed)."""
+    from basal_tpu.config import AlignParams as JaxParams
+    from basal_tpu.index.reference import load_reference as jax_ref
     from basal_tpu.index.seedindex import build_index
-    from basal_tpu.reads.encode import encode_batch
-    from basal_tpu.reads.io import open_reads
+    from basal_tpu_torch.config import AlignParams
+    from basal_tpu_torch.index.reference import load_reference
     from basal_tpu_torch.parallel.multihost import TorchRoutedSeedIndex
+    from basal_tpu_torch.reads.encode import encode_batch
+    from basal_tpu_torch.reads.io import open_reads
 
     _se_fixture(tmp_path, rng, 400, 60_000)
-    p = AlignParams(conversion="A:G", randseed=7)
+    kw = dict(conversion="A:G", randseed=7)
+    p = AlignParams(**kw)
+    jp = JaxParams(**kw)
+    dense = build_index(jax_ref(str(tmp_path / "ref.fa"), jp), jp)
     ref = load_reference(str(tmp_path / "ref.fa"), p)
-    dense = build_index(ref, p)
     routed = TorchRoutedSeedIndex(ref, p, num_shards=1, shard_id=0)
     assert routed.max_kmer_num == dense.max_kmer_num
     rd = open_reads(str(tmp_path / "reads.fq"), p)
@@ -219,20 +224,20 @@ def test_read_window_equals_basal_tpu(monkeypatch):
     """The same -B/-E windows as basal_tpu's read_window for every rank."""
     import jax
 
-    from basal_tpu.config import AlignParams
+    from basal_tpu.config import AlignParams as JaxParams
     from basal_tpu.parallel import multihost as jmh
+    from basal_tpu_torch.config import AlignParams
     from basal_tpu_torch.parallel import multihost as tmh
     for nproc in (1, 2, 3, 5):
         for pid in range(nproc):
             for kw, total in ((dict(), 2699), (dict(read_start=11), 100),
                               (dict(read_start=3, read_end=50), 1000)):
-                p = AlignParams(**kw)
                 monkeypatch.setattr(jax, "process_count", lambda: nproc)
                 monkeypatch.setattr(jax, "process_index", lambda: pid)
                 monkeypatch.setattr(tmh, "process_count", lambda: nproc)
                 monkeypatch.setattr(tmh, "process_index", lambda: pid)
-                want = jmh.read_window(p, total)
-                got = tmh.read_window(p, total)
+                want = jmh.read_window(JaxParams(**kw), total)
+                got = tmh.read_window(AlignParams(**kw), total)
                 assert (got.read_start, got.read_end) == \
                     (want.read_start, want.read_end)
 
@@ -242,7 +247,8 @@ def test_scale_out_modules_never_import_jax():
             "import basal_tpu_torch.parallel.worker, "
             "basal_tpu_torch.parallel.multihost, "
             "basal_tpu_torch.parallel.mesh, basal_tpu_torch.entry\n"
-            "assert 'jax' not in sys.modules, 'jax imported'\n")
+            "assert 'jax' not in sys.modules, 'jax imported'\n"
+            "assert 'basal_tpu' not in sys.modules, 'basal_tpu imported'\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        env={**os.environ, "PYTHONPATH": str(ROOT)},
                        capture_output=True, text=True, timeout=120)

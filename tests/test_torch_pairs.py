@@ -137,7 +137,7 @@ def test_port_pe_bam_equals_basal_tpu(tmp_path, rng, monkeypatch):
 def test_pe_threaded_runner_equals_single(tmp_path, rng, monkeypatch):
     """-p 2 over several batches (TorchPairThreadedRunner) writes the same
     bytes as one aligner, gapped waves on the device context."""
-    from basal_tpu.config import AlignParams
+    from basal_tpu_torch.config import AlignParams
     from basal_tpu_torch.pairs.pipeline import run_pair_end
     _pe_data(tmp_path, rng, "C:T", n=60, gap=2)
     monkeypatch.setenv("BASAL_TPU_HOST_EVAL", "0")

@@ -27,6 +27,7 @@ import sys
 from basal_tpu_torch import cli
 cli.main(sys.argv[1:])
 assert "jax" not in sys.modules, "basal_tpu_torch imported jax"
+assert "basal_tpu" not in sys.modules, "basal_tpu_torch imported basal_tpu"
 """
 
 
@@ -118,8 +119,8 @@ def test_threaded_runner_equals_single(tmp_path, rng, monkeypatch):
     same bytes as one aligner."""
     import io
 
-    from basal_tpu.config import AlignParams
     from basal_tpu_torch.align.pipeline import run_single_end
+    from basal_tpu_torch.config import AlignParams
     _data(tmp_path, rng, "C:T", n_reads=120)
     monkeypatch.setenv("BASAL_TPU_HOST_EVAL", "0")
     outs = []
@@ -141,8 +142,8 @@ def test_auto_placement_on_cpu_takes_host_path(tmp_path, rng, monkeypatch):
     basal_tpu does with jax pinned to the CPU; the SAM is the same."""
     import io
 
-    from basal_tpu.config import AlignParams
     from basal_tpu_torch.align.pipeline import run_single_end
+    from basal_tpu_torch.config import AlignParams
     _data(tmp_path, rng, "A:G")
     outs = []
     for mode in ("auto", "0"):
