@@ -188,7 +188,8 @@ class TorchDeviceContext:
 
     The same surface as basal_tpu's DeviceContext that the SE and PE
     aligners use: extend_async / fetch / extend, cost_per_cand, stalls,
-    up_bytes / up_waves, CHUNK; ``down_bytes`` counts the result bytes
+    up_bytes / up_waves, CHUNK; ``up_cand_max`` is the largest wave's
+    candidate count and ``down_bytes`` counts the result bytes
     copied back.  The fetch watchdog is not ported (on a local card it
     would hide a device failure), so ``stalls`` stays 0.
 
@@ -214,6 +215,7 @@ class TorchDeviceContext:
         self._meas_skip = 1
         self.up_bytes = 0
         self.up_waves = 0
+        self.up_cand_max = 0   # the most candidates of one wave
         self.down_bytes = 0
 
     @property
@@ -245,6 +247,7 @@ class TorchDeviceContext:
         for blob, C, U, E in self.wave_blobs(enc, loc, plane, row):
             self.up_bytes += blob.nbytes
             self.up_waves += 1
+            self.up_cand_max = max(self.up_cand_max, C)
             shape = dict(mode=self.mode, W=enc.W, nw=self.nw, C=C, U=U, E=E)
             with torch.cuda.device(self.device) if cuda else nullcontext():
                 dblob, staging = blob_to_device(blob, self.device)

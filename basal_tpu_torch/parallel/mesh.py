@@ -210,6 +210,7 @@ class ShardedTorchDeviceContext(TorchDeviceContext):
             for blob, c, U, E in self.wave_blobs(enc, loc[sl], plane[sl],
                                                  row[sl]):
                 self.up_waves += 1
+                self.up_cand_max = max(self.up_cand_max, c)
                 merged, keep = self._launch_row(i, blob, enc.W, c, U, E)
                 if self.mesh.group is not None:
                     merged = self._merge_processes(merged)

@@ -25,6 +25,7 @@ uint32: u32 payloads travel as int32 views and come back as uint32.
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from typing import List, Optional
 
@@ -138,6 +139,7 @@ class TorchRoutedSeedIndex(RoutedSeedIndex):
             a.reshape(-1)[::512] = 0
         self._locs = np.zeros(1024, dtype=np.uint32)
         self._locs_n = 0
+        self._fill_lock = threading.Lock()   # see parallel.routed
         self.exchanged_queries = 0
         self.exchanged_locs = 0
         self.rounds = 0

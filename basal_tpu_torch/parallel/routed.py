@@ -13,7 +13,16 @@ basal_tpu.  Changes: imports; removed the JAX members
 ``RoutedSeedIndex.__init__`` and ``_round`` (the shard build and the
 collectives), which ``parallel.multihost.TorchRoutedSeedIndex`` defines on
 torch.distributed, and ``_allgather_ragged``.  ``_round_inner``'s ``mhu``
-is any object with ``process_allgather``.
+is any object with ``process_allgather``.  ``_fill`` holds the index's
+own lock (``self._fill_lock``, made in ``TorchRoutedSeedIndex.__init__``,
+so unrelated indices never wait on each other): the service thread
+installs replies
+while the caller's thread installs its own-range k-mers in
+``ensure_batch``; unserialised, one fill could write its locs over the
+other's and roll ``_locs_n`` back, or fail on a slice that no longer fits
+its reply and stop the thread.  An empty reply (the service thread's in
+a round that answers only a peer) returns before it, as it installs
+nothing.
 """
 
 from __future__ import annotations
@@ -81,32 +90,36 @@ class RoutedSeedIndex:
         """Install a reply: ``sub_all`` is the full queried sublist (marked
         present), ``idx`` selects its occurring k-mers.  Only occurring
         entries are scatter-written — the calloc zero pages stand in for
-        the absent majority."""
+        the absent majority.  One fill at a time (see the module note);
+        an empty reply installs nothing and takes no turn."""
+        if not len(sub_all):
+            return
         import time
         tp = self.t_phase
-        t = time.time()
-        tot = int(cnts.sum())
-        need = self._locs_n + tot
-        if need > len(self._locs):
-            cap = max(need, 2 * len(self._locs))
-            nl = np.empty(cap, dtype=np.uint32)
-            nl[:self._locs_n] = self._locs[:self._locs_n]
-            self._locs = nl
-        if tot:
-            self._locs[self._locs_n:need] = locs
-        tp["f_locs"] += time.time() - t
-        t = time.time()
-        if len(idx):
-            kk = sub_all[idx]
-            self.starts[kk] = self._locs_n + np.concatenate(
-                [[0], np.cumsum(cnts[:-1], dtype=np.int64)])
-            self.counts[kk] = cnts
-            self.n1[kk] = n1s
-        tp["f_scatter"] += time.time() - t
-        t = time.time()
-        self._have[sub_all] = True
-        tp["f_have"] += time.time() - t
-        self._locs_n = need
+        with self._fill_lock:
+            t = time.time()
+            tot = int(cnts.sum())
+            need = self._locs_n + tot
+            if need > len(self._locs):
+                cap = max(need, 2 * len(self._locs))
+                nl = np.empty(cap, dtype=np.uint32)
+                nl[:self._locs_n] = self._locs[:self._locs_n]
+                self._locs = nl
+            if tot:
+                self._locs[self._locs_n:need] = locs
+            tp["f_locs"] += time.time() - t
+            t = time.time()
+            if len(idx):
+                kk = sub_all[idx]
+                self.starts[kk] = self._locs_n + np.concatenate(
+                    [[0], np.cumsum(cnts[:-1], dtype=np.int64)])
+                self.counts[kk] = cnts
+                self.n1[kk] = n1s
+            tp["f_scatter"] += time.time() - t
+            t = time.time()
+            self._have[sub_all] = True
+            tp["f_have"] += time.time() - t
+            self._locs_n = need
 
     def _round_inner(self, q, done, mhu):
         """4 collectives per round (was 8): the fixed-latency cost of the

@@ -8,15 +8,23 @@ Phases (any failure raises and the script exits non-zero):
      power limit and the torch / CUDA versions;
   1. build: nvcc builds the CUDA kernels from basal_tpu_torch/csrc while
      g++ builds the port's C++ host engine (basal_tpu_torch/native); both
-     times are printed;
+     times are printed, then ptxas -v's registers, shared memory, stack
+     frame and spills of every kernel instantiation; the phase fails if
+     any of the six (two kernels, three rule modes) uses local memory;
   2. kernels vs plain versions on the card: every wave of a real batch
      must equal the plain PyTorch version exactly.  Count kernel: reads of
      64-150 bp, some with Ns, under C:T, A:CGT, C:T -3 and A:G -N.  Gap
      kernel: the same with planted deletions and insertions, under T:- -g 3,
      C:T -g 1, A:CGT -g 2 and C:T -3 -g 2.  Then each kernel and its plain
      version are timed at C = 2^20 candidates, W = 7 words (100 bp),
-     U = 8192 rows (the gap kernel at gap 3), beside the least time the
-     card could take for the same work (``bound``);
+     U = 8192 rows over a 50 Mbp reference (the count kernel in all three
+     modes, the gap kernel at gap 3), beside the least time the card could
+     take for the same work (``bound``), and the count kernel once more over
+     a 2 Gbp reference, out of L2 (four waves of different candidates in
+     turn).  A kernel's time is the card's own: the
+     mean duration of its launches in torch.profiler's kernel events.  The
+     CUDA events around back-to-back wrapper calls are printed beside it as
+     the time per call, host included;
   2b. the dp x rs mesh: on real waves (count kernel under C:T, gap kernel
      under T:- -g 3), ShardedTorchDeviceContext at 1x4, 2x2 and 4x1 over
      [cuda:i % cards] must equal TorchDeviceContext element for element,
@@ -26,9 +34,11 @@ Phases (any failure raises and the script exits non-zero):
      through basal_tpu_torch's run_single_end with every wave forced onto
      the card (BASAL_TPU_HOST_EVAL=0); the SAM must be byte-identical to
      the run that evaluates every candidate with the C++ host evaluator;
+     then the device-forced run once more under torch.profiler for the
+     card's busy time, the count kernel's launches (one per wave), busy
+     time and time per launch, and the candidates per wave;
   3b. gapped single-end: 200k 100 bp BID-seq reads (-M T:- -g 3) the same
-     way, through the gap kernel; then the device-forced run once more
-     under torch.profiler for the card's busy time and position download;
+     way, through the gap kernel, and under torch.profiler as in 3;
   3c. paired-end: 100k pairs of 100 bp through run_pair_end, -M C:T (count
      kernel) and -M C:T -g 2 with planted deletions (gap kernel), each
      device-forced against the host evaluator;
@@ -70,6 +80,12 @@ PHASE2 = [("C:T", False, False), ("A:CGT", False, False),
 PHASE2_GAP = [("T:-", 3, False), ("C:T", 1, False), ("A:CGT", 2, False),
               ("C:T", 2, True)]            # (rule, gap, nt3)
 BENCH_C, BENCH_W, BENCH_U, BENCH_GAP = 1 << 20, 7, 8192, 3
+# the count kernel's timing shape out of L2: 1 GB of packed words, 20x the
+# L2; a 31-bit loc addresses at most 2^31 bases per shard.  Its waves of
+# different candidates alternate, each touching some 64 MB of sectors, so a
+# launch finds little of the last ones' windows in the 50 MB L2
+GENOME_OUT_OF_L2 = 2_000_000_000
+WAVES_OUT_OF_L2 = 4
 NT = b"ACGT"
 # an H100 SXM's published peaks (700 W): device memory, and 32-bit lanes
 # outside the tensor cores
@@ -114,6 +130,22 @@ def kernel_resources(report):
             m = re.search(r"(\d+) bytes smem", line)
             cur["smem"] = int(m.group(1)) if m else 0
     return res
+
+
+def local_memory_gate(resources):
+    """Phase 1's gate on kernel_resources' result: every instantiation of
+    both kernels must be there with 0 bytes of stack frame, spill stores
+    and spill loads.  Modes 0, 1, 2 are oneway, multiway, nt3; W is a
+    runtime argument, so each instantiation is the one every W launches.
+    Raises AssertionError naming the offenders."""
+    fields = ("stack", "spill_st", "spill_ld")
+    bad = {name: resources.get(name) for name in
+           (f"{k}<{m}>" for k in ("count_blob_kernel", "gap_blob_kernel")
+            for m in range(3))
+           if any(resources.get(name, {}).get(f, 1) for f in fields)}
+    if bad:
+        raise AssertionError(f"kernels missing from the ptxas report or "
+                             f"using local memory: {bad}")
 
 
 def nvidia_smi_line() -> str:
@@ -413,15 +445,26 @@ def gap_kernel_checks(fasta, g, work, device, n_reads=WAVE_READS):
     return worst
 
 
-def synthetic_wave(mode, device, C=BENCH_C, W=BENCH_W, U=BENCH_U,
-                   genome=GENOME):
-    """A wave at the timing shape: random reference words, candidates
-    spread over both planes, U equal rows of 100 bp reads without Ns."""
+def synthetic_reference(device, genome=GENOME):
+    """(ref32 on the device, nw): both planes of a random packed reference
+    of ``genome`` bases, made with numpy."""
     import numpy as np
     import torch
     rng = np.random.default_rng(SEED + 2)
     nw = genome // 16 + 4
     ref32 = rng.integers(0, 1 << 32, 2 * nw, dtype=np.uint32).view(np.int32)
+    return torch.from_numpy(ref32).to(device), nw
+
+
+def synthetic_wave(mode, device, ref, C=BENCH_C, W=BENCH_W, U=BENCH_U,
+                   seed=SEED + 2):
+    """A wave at the timing shape over ``ref`` (synthetic_reference's):
+    (ref32, blob, shape) with candidates spread over both planes, U equal
+    rows of 100 bp reads without Ns."""
+    import numpy as np
+    import torch
+    ref32, nw = ref
+    rng = np.random.default_rng(seed)
     loc = rng.integers(16, 16 * (nw - W - 4), C).astype(np.uint32)
     plane = rng.integers(0, 2, C).astype(np.uint32)
     parts = [(loc | (plane << np.uint32(31))).view(np.int32),
@@ -432,8 +475,7 @@ def synthetic_wave(mode, device, C=BENCH_C, W=BENCH_W, U=BENCH_U,
                               dtype=np.uint32).view(np.int32))
     parts.append(np.zeros(W, np.int32))     # E = 1 unused exception row
     blob = np.concatenate(parts)
-    return (torch.from_numpy(ref32).to(device),
-            torch.from_numpy(blob).to(device),
+    return (ref32, torch.from_numpy(blob).to(device),
             dict(mode=mode, W=W, nw=nw, C=C, U=U, E=1))
 
 
@@ -463,7 +505,10 @@ def bound(blob, shape, gap=0):
 
 
 def time_ms(fn, iters):
-    """Mean ms per call on the card (CUDA events, after one warm-up)."""
+    """Mean ms per call, host included: CUDA events around ``iters``
+    back-to-back calls (after one warm-up).  Where a wrapper's host work per
+    call exceeds its kernel's time, the card waits between launches and
+    this times the host."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -477,80 +522,166 @@ def time_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def kernel_timing(device):
-    """Phase 2, timing: kernel and plain version at the timing shape, in
-    turns (plain, kernel, kernel, plain); ms per 2^20 candidates per
-    mode."""
+def kernel_events(prof, name):
+    """Durations (ms, the card's clock) of the CUDA kernels of a
+    torch.profiler trace whose name holds ``name``."""
+    import torch
+    return [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and name in e.name]
+
+
+def recorded(session, name, want):
+    """Run ``session()``, a torch.profiler session that returns (result,
+    durations of kernel ``name``'s launches), until it recorded all ``want``
+    launches, at most three times: CUPTI drops an event now and then, and
+    once in a while a whole session's.  Returns the session that recorded
+    the most; raises if one recorded more than ``want``, or the best under
+    half of them."""
+    best = None
+    for _ in range(3):
+        res, durs = session()
+        if len(durs) > want:
+            raise AssertionError(f"the profiler recorded {len(durs)} "
+                                 f"launches of {name}, want {want}")
+        if best is None or len(durs) > len(best[1]):
+            best = res, durs
+        if len(durs) == want:
+            break
+        log(f"the profiler recorded {len(durs)} of {want} launches of {name}")
+    if 2 * len(best[1]) < want:
+        raise AssertionError(f"three profiler sessions recorded at most "
+                             f"{len(best[1])} of {want} launches of {name}")
+    return best
+
+
+def device_ms(fn, name, iters, per_call=1):
+    """Mean device ms of one launch of kernel ``name``, from torch.profiler's
+    kernel events over ``iters`` calls of ``fn`` (after one warm-up), each
+    launching it ``per_call`` times (``recorded``'s sessions)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+
+    def session():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        return None, kernel_events(prof, name)
+
+    durs = recorded(session, name, iters * per_call)[1]
+    return sum(durs) / len(durs)
+
+
+def timed_kernel(name, kern, plain, iters, plain_iters, per_call=1):
+    """Kernel and plain version in turns (plain, kernel, kernel, kernel,
+    plain): (device ms per launch, [event-timed ms per launch, host
+    included] x 2, [plain ms per launch] x 2)."""
+    p1 = time_ms(plain, plain_iters) / per_call
+    c1 = time_ms(kern, iters) / per_call
+    dev = device_ms(kern, name, iters, per_call)
+    c2 = time_ms(kern, iters) / per_call
+    p2 = time_ms(plain, plain_iters) / per_call
+    return dev, [c1, c2], [p1, p2]
+
+
+def check_counts(ref32, blobs, shape, what):
+    """The count kernel == its plain version on each blob."""
     import torch
     from basal_tpu_torch.ops.extend import extend_kernel_blob
     from basal_tpu_torch.ops.extend_cuda import extend_counts_blob
-    out = {}
-    for mode in ("oneway", "multiway", "nt3"):
-        ref32, blob, shape = synthetic_wave(mode, device)
+    for blob in blobs:
         got = extend_counts_blob(ref32, blob, **shape)
         want = extend_kernel_blob(ref32, blob, **shape)
         if not torch.equal(got, want):
-            raise AssertionError(f"{mode}: kernel != plain at timing shape")
-        kern = lambda: extend_counts_blob(ref32, blob, **shape)
-        plain = lambda: extend_kernel_blob(ref32, blob, **shape)
-        p1 = time_ms(plain, 5)
-        k1 = time_ms(kern, 50)
-        k2 = time_ms(kern, 50)
-        p2 = time_ms(plain, 5)
-        scale = (1 << 20) / shape["C"]
-        b_ms, b_by = bound(blob, shape)
-        out[mode] = ((k1 + k2) / 2 * scale, (p1 + p2) / 2 * scale,
-                     b_ms * scale, b_by)
-        log(f"timing [{mode}] C={shape['C']} W={shape['W']} U={shape['U']}: "
-            f"kernel {k1 * scale:.4f} / {k2 * scale:.4f} ms, plain "
-            f"{p1 * scale:.4f} / {p2 * scale:.4f} ms, bound "
-            f"{b_ms * scale:.4f} ms ({b_by}) per 2^20 candidates")
-        del ref32, blob
-        torch.cuda.empty_cache()
+            diff = int((got.int() - want.int()).abs().max())
+            raise AssertionError(f"{what}: kernel != plain (max abs diff "
+                                 f"{diff})")
+
+
+def count_timing(device, ref, label, waves=1, iters=50, plain_iters=5):
+    """Phase 2, timing, count kernel: each mode at the timing shape over
+    ``ref``, kernel == plain first.  With ``waves`` > 1, that many waves of
+    different candidates alternate, so that a launch finds little of the
+    last one's windows in L2.  Returns {mode: {device_ms, call_ms,
+    plain_ms, bound_ms, bound_by}}, ms per 2^20 candidates, call_ms and
+    plain_ms as [first, second] timing."""
+    import torch
+    from basal_tpu_torch.ops.extend import MODES, extend_kernel_blob
+    from basal_tpu_torch.ops.extend_cuda import extend_counts_blob
+    out = {}
+    for mode in MODES:
+        made = [synthetic_wave(mode, device, ref, seed=SEED + 20 + k)
+                for k in range(waves)]
+        ref32, shape = made[0][0], made[0][2]
+        blobs = [m[1] for m in made]
+        check_counts(ref32, blobs, shape, f"{mode} at the {label} shape")
+        dev, calls, plains = timed_kernel(
+            "count_blob_kernel",
+            lambda: [extend_counts_blob(ref32, b, **shape) for b in blobs],
+            lambda: [extend_kernel_blob(ref32, b, **shape) for b in blobs],
+            iters, plain_iters, per_call=waves)
+        b_ms, b_by = bound(blobs[0], shape)
+        s = (1 << 20) / shape["C"]
+        out[mode] = dict(device_ms=dev * s, call_ms=[c * s for c in calls],
+                         plain_ms=[p * s for p in plains], bound_ms=b_ms * s,
+                         bound_by=b_by)
+        log(f"timing count [{mode}, {label}] C={shape['C']} W={shape['W']} "
+            f"U={shape['U']}, {waves} wave(s): device {dev * s:.4f} ms, per "
+            f"call host included {calls[0] * s:.4f} / {calls[1] * s:.4f} "
+            f"ms, plain {plains[0] * s:.4f} / {plains[1] * s:.4f} ms, bound "
+            f"{b_ms * s:.4f} ms ({b_by}), device at "
+            f"{100 * b_ms / dev:.1f}% of it, per 2^20 candidates")
+        del made, blobs
+    torch.cuda.empty_cache()
     return out
 
 
-def gap_kernel_timing(device):
-    """Phase 2, timing, gap kernel: kernel and plain version at the timing
-    shape, gap 3, oneway, in turns; ms per 2^20 candidates."""
+def gap_kernel_timing(device, ref):
+    """Phase 2, timing, gap kernel: kernel == plain, then both at the
+    timing shape over ``ref``, gap 3, oneway, in turns.  Returns {device_ms,
+    call_ms, plain_ms, bound_ms, bound_by} as count_timing does."""
     import torch
     from basal_tpu_torch.ops.extend import extend_kernel_blob
     from basal_tpu_torch.ops.extend_cuda import extend_gap_blob
-    ref32, blob, shape = synthetic_wave("oneway", device)
+    ref32, blob, shape = synthetic_wave("oneway", device, ref)
     shape["gap"] = BENCH_GAP
     got = extend_gap_blob(ref32, blob, **shape)
     want = extend_kernel_blob(ref32, blob, **shape)
     if not all(torch.equal(a, b) for a, b in zip(got, want)):
         raise AssertionError("gap kernel != plain at timing shape")
     del got, want
-    kern = lambda: extend_gap_blob(ref32, blob, **shape)
-    plain = lambda: extend_kernel_blob(ref32, blob, **shape)
-    p1 = time_ms(plain, 3)
-    k1 = time_ms(kern, 20)
-    k2 = time_ms(kern, 20)
-    p2 = time_ms(plain, 3)
-    scale = (1 << 20) / shape["C"]
+    dev, calls, plains = timed_kernel(
+        "gap_blob_kernel", lambda: extend_gap_blob(ref32, blob, **shape),
+        lambda: extend_kernel_blob(ref32, blob, **shape), 20, 3)
+    s = (1 << 20) / shape["C"]
     b_ms, b_by = bound(blob, shape, gap=BENCH_GAP)
     log(f"timing [gap {BENCH_GAP} oneway] C={shape['C']} W={shape['W']} "
-        f"U={shape['U']}: kernel {k1 * scale:.4f} / {k2 * scale:.4f} ms, "
-        f"plain {p1 * scale:.4f} / {p2 * scale:.4f} ms, bound "
-        f"{b_ms * scale:.4f} ms ({b_by}), kernel at "
-        f"{100 * b_ms * 2 / (k1 + k2):.1f}% of it, per 2^20 candidates")
-    del ref32, blob
+        f"U={shape['U']}: device {dev * s:.4f} ms, per call host included "
+        f"{calls[0] * s:.4f} / {calls[1] * s:.4f} ms, plain "
+        f"{plains[0] * s:.4f} / {plains[1] * s:.4f} ms, bound "
+        f"{b_ms * s:.4f} ms ({b_by}), device at {100 * b_ms / dev:.1f}% of "
+        f"it, per 2^20 candidates")
+    del blob
     torch.cuda.empty_cache()
-    return ((k1 + k2) / 2 * scale, (p1 + p2) / 2 * scale, b_ms * scale,
-            b_by)
+    return dict(device_ms=dev * s, call_ms=[c * s for c in calls],
+                plain_ms=[p * s for p in plains], bound_ms=b_ms * s,
+                bound_by=b_by)
 
 
 def device_profile(run):
-    """Run ``run()`` under torch.profiler; the card's busy time by kind
-    (ms): kernels, host-to-device and device-to-host copies, all."""
+    """Run ``run()`` under torch.profiler: (wall s, the card's busy time by
+    kind (ms): kernels, host-to-device and device-to-host copies, all;
+    {port kernel: its launches' durations (ms)}; run()'s result)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        run()
+        res = run()
         torch.cuda.synchronize()
         wall = time.time() - t0
     busy = {"kernel": 0.0, "HtoD": 0.0, "DtoH": 0.0, "all": 0.0}
@@ -564,7 +695,9 @@ def device_profile(run):
                 and "Memset" not in e.name else None)
         if kind:
             busy[kind] += ms
-    return wall, busy
+    launched = {k: kernel_events(prof, k)
+                for k in ("count_blob_kernel", "gap_blob_kernel")}
+    return wall, busy, launched, res
 
 
 def device_vs_host(label, argv, files, fasta, work, device, n_reads,
@@ -645,12 +778,36 @@ def device_vs_host(label, argv, files, fasta, work, device, n_reads,
             result["host_rate"] = n_reads / wall
     if profile:
         os.environ["BASAL_TPU_HOST_EVAL"] = "0"
-        wall, busy = device_profile(
-            lambda: drive(work / f"{label}_prof.sam", {}))
-        result.update(prof_wall=wall, busy=busy)
+        name = f"{kernel}_blob_kernel"
+        waves = result["waves"]
+
+        def session():
+            wall, busy, launched, aligner = device_profile(
+                lambda: drive(work / f"{label}_prof.sam", {}))
+            if aligner._dev.up_waves != waves:
+                raise AssertionError(f"{label}: {aligner._dev.up_waves} "
+                                     f"waves under the profiler, {waves} "
+                                     f"before")
+            return (wall, busy, aligner), launched[name]
+
+        (wall, busy, aligner), durs = recorded(session, name, waves)
+        dev = aligner._dev
+        cand = aligner.stage["cand_device"]
+        mean = sum(durs) / len(durs)
+        # busy over every wave: the recorded launches' mean times the waves,
+        # which is their sum when the session recorded all of them
+        result.update(prof_wall=wall, busy=busy, kernel_busy=mean * waves,
+                      kernel_n=len(durs), kernel_us=1e3 * mean,
+                      cand_per_wave=cand / waves, cand_max=dev.up_cand_max)
         log(f"{label} under torch.profiler: run {wall:.3f} s, card busy "
             + ", ".join(f"{k} {v:.3f} ms" for k, v in busy.items())
             + f"; idle share {1 - busy['all'] / 1e3 / wall:.5f}")
+        log(f"{label} {name} under torch.profiler: {len(durs)} of {waves} "
+            f"launches recorded, busy {mean * waves:.4f} ms over the waves, "
+            f"{result['kernel_us']:.2f} us per launch (largest "
+            f"{1e3 * max(durs):.2f}); {cand} candidates, "
+            f"{result['cand_per_wave']:.1f} per wave, largest wave "
+            f"{result['cand_max']}")
     os.environ.pop("BASAL_TPU_HOST_EVAL")
 
     def body(path):
@@ -758,23 +915,35 @@ def multiprocess_run(fasta, fq, work, single_sam, n_reads=N_READS):
     log(f"multi-process: 2 workers, backend gloo (two ranks share the one "
         f"card; NCCL needs a card per rank), device cuda")
     t0 = time.perf_counter()
-    procs = [subprocess.Popen(
-        [sys.executable, "-m", "basal_tpu_torch.parallel.worker", str(pid),
-         "2", str(port), str(wdir)], cwd=ROOT, env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for pid in range(2)]
+    logs = [(wdir / f"worker{pid}.out", wdir / f"worker{pid}.err")
+            for pid in range(2)]
+    procs = []
+    for pid, (out, err) in enumerate(logs):
+        with open(out, "w") as fo, open(err, "w") as fe:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "basal_tpu_torch.parallel.worker",
+                 str(pid), "2", str(port), str(wdir)], cwd=ROOT, env=env,
+                stdout=fo, stderr=fe))
+    deadline = time.monotonic() + 600
     try:
-        outs = [p.communicate(timeout=600) for p in procs]
+        # a worker that dies leaves the other blocked in a collective:
+        # stop both as soon as one fails
+        while (any(p.poll() is None for p in procs)
+               and not any(p.poll() for p in procs)
+               and time.monotonic() < deadline):
+            time.sleep(0.2)
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
     wall = time.perf_counter() - t0
-    for pid, (p, (out, err)) in enumerate(zip(procs, outs)):
-        if p.returncode != 0:
-            raise AssertionError(f"worker {pid} rc={p.returncode}\n"
-                                 f"{out[-3000:]}\n{err[-3000:]}")
+    if any(p.returncode for p in procs):
+        raise AssertionError(
+            f"workers rc={[p.returncode for p in procs]} after {wall:.1f} s\n"
+            + "\n".join(f"--- worker {pid} {f.name}:\n"
+                        f"{f.read_text()[-2500:]}"
+                        for pid, pair in enumerate(logs) for f in pair))
     stats = [json.loads((wdir / f"stats_p{i}.json").read_text())
              for i in range(2)]
 
@@ -869,15 +1038,10 @@ def main() -> int:
                 raise AssertionError(f"the {k} did not build")
             log(f"{k} {libs[k][0].relative_to(ROOT)} "
                 f"{'built' if built[k] else 'loaded'} in {secs:.3f} s")
-    # modes 0, 1, 2: oneway, multiway, nt3; W is a runtime argument, so each
-    # instantiation is the one every W launches
     resources = kernel_resources(_build.resource_report())
     for name, r in sorted(resources.items()):
         log(f"ptxas {name}: {r}")
-    gap_res = [r for n, r in resources.items() if n.startswith("gap")]
-    if len(gap_res) != 3 or any(r.get("stack", 1) or r.get("spill_st", 1)
-                                or r.get("spill_ld", 1) for r in gap_res):
-        raise AssertionError(f"gap kernel uses local memory: {resources}")
+    local_memory_gate(resources)
 
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_",
@@ -899,13 +1063,21 @@ def main() -> int:
         # phase 2: kernels against their plain versions
         worst = kernel_checks(fasta, g, work, device)
         worst_gap = gap_kernel_checks(fasta, g, work, device)
-        times = kernel_timing(device)
-        gap_times = gap_kernel_timing(device)
+        ref = synthetic_reference(device)
+        times = count_timing(device, ref, "50 Mbp")
+        gap_times = gap_kernel_timing(device, ref)
+        del ref
+        ref = synthetic_reference(device, GENOME_OUT_OF_L2)
+        times_out = count_timing(device, ref, "2 Gbp",
+                                 waves=WAVES_OUT_OF_L2, iters=25,
+                                 plain_iters=2)
+        del ref
+        torch.cuda.empty_cache()
         mesh_walls = mesh_checks(fasta, g, work, device)
 
         # phase 3: the paths, device-forced against the host evaluator
         main = device_vs_host("se A:G", ["-M", "A:G"], (fq,), fasta, work,
-                              device, N_READS, "count", 0.9)
+                              device, N_READS, "count", 0.9, profile=True)
         bid = device_vs_host("se T:- -g 3", ["-M", "T:-", "-g", "3"],
                              (fq_bid,), fasta, work, device, N_READS, "gap",
                              0.5, profile=True)
@@ -941,21 +1113,44 @@ def main() -> int:
         log(f"mesh wall per wave [{kernel} kernel]: "
             + ", ".join(f"{k} {v:.3f} ms" for k, v in w.items())
             + f" on {smi}")
+    for label, r in (("se A:G", main), ("se T:- -g 3", bid)):
+        log(f"{label} card kernel busy {r['kernel_busy']:.4f} ms over "
+            f"{r['kernel_n']} recorded launches of {r['waves']}, "
+            f"{r['kernel_us']:.2f} us per launch, "
+            f"{r['cand_per_wave']:.1f} candidates per wave (largest "
+            f"{r['cand_max']}); idle share "
+            f"{1 - r['busy']['all'] / 1e3 / r['prof_wall']:.5f} on {smi}")
+    for mode in times:
+        for label, t in (("50 Mbp", times[mode]), ("2 Gbp", times_out[mode])):
+            log(f"count kernel [{mode}, {label}]: device {t['device_ms']:.4f} "
+                f"ms, per call host included "
+                + " / ".join(f"{c:.4f}" for c in t["call_ms"])
+                + f" ms, bound {t['bound_ms']:.4f} ms per 2^20 on {smi}")
+    log(f"gap kernel [gap {BENCH_GAP} oneway, 50 Mbp]: device "
+        f"{gap_times['device_ms']:.4f} ms, per call host included "
+        + " / ".join(f"{c:.4f}" for c in gap_times["call_ms"])
+        + f" ms, bound {gap_times['bound_ms']:.4f} ms per 2^20 on {smi}")
+    one, one_out = times["oneway"], times_out["oneway"]
     kernels = [{
         "name": "count_blob_kernel", "route": "cuda",
         "source": "basal_tpu_torch/csrc/count_kernel.cu",
         "replaces": "basal_tpu/ops/extend_pallas.py:35",
         "launches": main["launches"], "max_abs_err": worst,
-        "ms": times["oneway"][0], "plain_ms": times["oneway"][1],
-        "bound_ms": times["oneway"][2], "bound_by": times["oneway"][3],
-        "library_ms": None}, {
+        "ms": one["device_ms"], "plain_ms": sum(one["plain_ms"]) / 2,
+        "bound_ms": one["bound_ms"], "bound_by": one["bound_by"],
+        "library_ms": None, "device_ms": one["device_ms"],
+        "call_ms": sum(one["call_ms"]) / 2,
+        "ms_out_of_l2": one_out["device_ms"],
+        "bound_ms_out_of_l2": one_out["bound_ms"]}, {
         "name": "gap_blob_kernel", "route": "cuda",
         "source": "basal_tpu_torch/csrc/gap_kernel.cu",
         "replaces": "basal_tpu/ops/extend_pallas.py:137",
         "launches": bid["launches"], "max_abs_err": worst_gap,
-        "ms": gap_times[0], "plain_ms": gap_times[1],
-        "bound_ms": gap_times[2], "bound_by": gap_times[3],
-        "library_ms": None}]
+        "ms": gap_times["device_ms"],
+        "plain_ms": sum(gap_times["plain_ms"]) / 2,
+        "bound_ms": gap_times["bound_ms"], "bound_by": gap_times["bound_by"],
+        "library_ms": None, "device_ms": gap_times["device_ms"],
+        "call_ms": sum(gap_times["call_ms"]) / 2}]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -75,6 +75,105 @@ def test_kernel_equals_plain(cuda, mode, C, U, W, E):
     assert torch.equal(got.cpu(), want_cpu)
 
 
+def _count_against_plain(cuda, ref32, blob, shape):
+    """The count kernel's counts on the card, asserted equal to the plain
+    version's on the same tensors; returned on the CPU."""
+    from basal_tpu_torch.ops.extend import extend_kernel_blob
+    from basal_tpu_torch.ops.extend_cuda import extend_counts_blob
+    r, b = torch.from_numpy(ref32).to(cuda), torch.from_numpy(blob).to(cuda)
+    before = extend_counts_blob.launches
+    got = extend_counts_blob(r, b, **shape)
+    torch.cuda.synchronize()
+    assert extend_counts_blob.launches == before + 1
+    assert torch.equal(got, extend_kernel_blob(r, b, **shape))
+    return got.cpu()
+
+
+def _with_row_off(blob, shape, row_off):
+    """The blob with its row_off [U+1] replaced."""
+    C, U = shape["C"], shape["U"]
+    assert len(row_off) == U + 1 and (np.diff(row_off) >= 0).all()
+    blob = blob.copy()
+    blob[C:C + U + 1] = row_off
+    return blob
+
+
+@pytest.mark.parametrize("mode", ["oneway", "multiway", "nt3"])
+@pytest.mark.parametrize("C", [1, 31, 32, 33, 127, 128, 129, 255, 256, 257,
+                               128 * 8000 + 1])
+def test_count_kernel_tile_edges(cuda, mode, C):
+    """Waves that end on either side of a warp tile (32) and a block (128
+    candidates); 128 * 8000 + 1 is more tiles than the grid has warps, so
+    each warp walks a run of several tiles through its 2-stage ring."""
+    ref32, blob, shape = _random_blob(mode, C, max(1, C // 5), 7, 3,
+                                      nw=1 << 16, seed=C + 1)
+    _count_against_plain(cuda, ref32, blob, shape)
+
+
+@pytest.mark.parametrize("mode", ["oneway", "multiway", "nt3"])
+@pytest.mark.parametrize("layout", ["row_per_candidate", "one_row"])
+def test_count_kernel_row_extremes(cuda, mode, layout):
+    """One candidate per row (U = C: 32 row starts in every tile, the
+    device-memory search) and one row for the whole wave (U = 1)."""
+    C = 5000
+    U = C if layout == "row_per_candidate" else 1
+    ref32, blob, shape = _random_blob(mode, C, U, 7, 2, nw=1 << 14, seed=U)
+    _count_against_plain(cuda, ref32,
+                         _with_row_off(blob, shape, np.arange(U + 1) * C // U),
+                         shape)
+
+
+@pytest.mark.parametrize("mode", ["oneway", "multiway", "nt3"])
+@pytest.mark.parametrize("run", [3, 31, 32, 33, 500])
+def test_count_kernel_empty_rows(cuda, mode, run):
+    """row_off with runs of repeats (empty rows): a run of ``run`` at the
+    start (0), inside the wave and in the padded tail (C).  Runs of 32 and
+    more exceed the shared row_off slice of a tile."""
+    C, W = 4000, 7
+    rng = np.random.default_rng(run)
+    cuts = np.sort(np.concatenate([
+        np.zeros(run, int), np.full(run, 1234), np.full(run, 2049),
+        rng.integers(1, C, 150), np.full(run, C)]))
+    U = cuts.size + 1
+    ref32, blob, shape = _random_blob(mode, C, U, W, 4, nw=1 << 14,
+                                      seed=run)
+    row_off = np.concatenate([[0], cuts, [C]]).astype(np.int32)
+    _count_against_plain(cuda, ref32, _with_row_off(blob, shape, row_off),
+                         shape)
+
+
+@pytest.mark.parametrize("mode", ["oneway", "multiway", "nt3"])
+@pytest.mark.parametrize("W", [1, 2, 15, 30, 64])
+def test_count_kernel_window_widths(cuda, mode, W):
+    """The smallest and largest shared-memory strides S = (W+1) | 1: W 1
+    (S 3, 16 windows per gather instruction), W 30 (S 31), and W 64, the
+    most a 10-bit read length needs (S 65, over 48 KB of shared memory)."""
+    ref32, blob, shape = _random_blob(mode, 3000, 97, W, 5, nw=1 << 14,
+                                      seed=W)
+    _count_against_plain(cuda, ref32, blob, shape)
+
+
+@pytest.mark.parametrize("mode", ["oneway", "multiway", "nt3"])
+def test_count_kernel_4094_exception_rows(cuda, mode):
+    ref32, blob, shape = _random_blob(mode, 20_000, 5000, 7, 4094,
+                                      nw=1 << 16, seed=4094)
+    _count_against_plain(cuda, ref32, blob, shape)
+
+
+@pytest.mark.parametrize("mode", ["oneway", "multiway", "nt3"])
+def test_count_kernel_plane_ends(cuda, mode):
+    """Windows that reach the last words of each plane: on the forward
+    plane they run into the reverse plane, on the reverse plane past the
+    reference, where the gather index is clamped."""
+    C, W, nw = 3000, 7, 1 << 12
+    ref32, blob, shape = _random_blob(mode, C, 60, W, 3, nw=nw, seed=11)
+    rng = np.random.default_rng(12)
+    loc = rng.integers(16 * (nw - W - 2), 16 * nw, C).astype(np.uint32)
+    plane = (np.arange(C) % 2).astype(np.uint32)
+    blob[:C] = (loc | (plane << np.uint32(31))).view(np.int32)
+    _count_against_plain(cuda, ref32, blob, shape)
+
+
 def test_empty_wave_does_not_launch(cuda):
     from basal_tpu_torch.ops.extend_cuda import extend_counts_blob
     ref32 = torch.zeros(512, dtype=torch.int32, device=cuda)

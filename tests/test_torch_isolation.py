@@ -218,7 +218,8 @@ EDITED = [
     ("toolkit/bamio.py", "toolkit/bamio.py", set()),
     ("align/aligner.py", "align/pipeline.py", set()),
     ("pairs/aligner.py", "pairs/pipeline.py", set()),
-    ("parallel/routed.py", "parallel/multihost.py", set()),
+    ("parallel/routed.py", "parallel/multihost.py",
+     {"RoutedSeedIndex._fill"}),
 ]
 
 

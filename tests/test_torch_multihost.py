@@ -253,3 +253,54 @@ def test_scale_out_modules_never_import_jax():
                        env={**os.environ, "PYTHONPATH": str(ROOT)},
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
+
+
+def test_routed_fills_are_serialised():
+    """The service thread's fill and the caller's own-range fill may run at
+    once; each must land whole.  A reply whose locs block while they are
+    copied holds one fill inside ``_fill`` while another starts: unlocked,
+    the second wrote its locs where the first was about to and the first
+    then set ``_locs_n`` back."""
+    import threading
+    from basal_tpu_torch.parallel.routed import RoutedSeedIndex
+
+    idx = object.__new__(RoutedSeedIndex)
+    nk = 16
+    idx.starts = np.zeros(nk, np.int64)
+    idx.counts = np.zeros(nk, np.int32)
+    idx.n1 = np.zeros(nk, np.int32)
+    idx._have = np.zeros(nk, bool)
+    idx._locs = np.zeros(4, np.uint32)
+    idx._locs_n = 0
+    idx._fill_lock = threading.Lock()   # TorchRoutedSeedIndex.__init__'s
+    idx.t_phase = {"f_locs": 0.0, "f_scatter": 0.0, "f_have": 0.0}
+    entered, release = threading.Event(), threading.Event()
+
+    class BlockingLocs:
+        def __init__(self, a):
+            self.a = a
+
+        def __array__(self, dtype=None, copy=None):
+            entered.set()
+            assert release.wait(10)
+            return self.a
+
+    first = threading.Thread(target=idx._fill, args=(
+        np.array([1, 2]), np.array([0, 1]), np.array([2, 1]),
+        np.array([0, 0]), BlockingLocs(np.array([10, 11, 12], np.uint32))))
+    first.start()
+    assert entered.wait(10)
+    second = threading.Thread(target=idx._fill, args=(
+        np.array([5]), np.array([0]), np.array([2]), np.array([1]),
+        np.array([50, 51], np.uint32)))
+    second.start()
+    second.join(0.5)          # it waits for the first, or races it
+    release.set()
+    first.join(10)
+    second.join(10)
+    assert not first.is_alive() and not second.is_alive()
+    assert idx._locs_n == 5
+    for k, want in ((1, [10, 11]), (2, [12]), (5, [50, 51])):
+        s, c = int(idx.starts[k]), int(idx.counts[k])
+        assert idx._locs[s:s + c].tolist() == want, k
+    assert idx._have[[1, 2, 5]].all() and idx.n1[5] == 1
