@@ -156,7 +156,9 @@ def split_waves(enc: EncodedBatch, row: np.ndarray):
 
 
 class _Wave(NamedTuple):
-    C: int
+    C: int                     # candidates
+    U: int                     # rows (reads x strands) in the blob
+    E: int                     # exception rows shipped
     out: tuple                 # counts u8 [C] (gapped: + pos0, pos1 i16);
                                # pinned host copies on CUDA
     event: Optional[object]    # torch.cuda.Event behind the copies
@@ -164,14 +166,16 @@ class _Wave(NamedTuple):
     keep: tuple                # buffers referenced until the fetch
 
 
-def download(C: int, out: tuple, t0: float, keep: tuple) -> _Wave:
-    """A wave of C candidates whose results ``out`` are on a device: on
+def download(C: int, U: int, E: int, out: tuple, t0: float,
+             keep: tuple) -> _Wave:
+    """A wave of C candidates over U rows and E exception rows whose
+    results ``out`` are on a device: on
     CUDA, pinned host copies started on the current stream behind an event
     (``keep`` and ``out`` stay referenced until the fetch); on the CPU, the
     results as they are."""
     dev = out[0].device
     if dev.type == "cpu":
-        return _Wave(C, out, None, t0, ())
+        return _Wave(C, U, E, out, None, t0, ())
     with torch.cuda.device(dev):
         host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
                      for t in out)
@@ -179,7 +183,7 @@ def download(C: int, out: tuple, t0: float, keep: tuple) -> _Wave:
             h.copy_(t, non_blocking=True)
         event = torch.cuda.Event()
         event.record()
-    return _Wave(C, host, event, t0, keep + (out,))
+    return _Wave(C, U, E, host, event, t0, keep + (out,))
 
 
 class TorchDeviceContext:
@@ -190,8 +194,14 @@ class TorchDeviceContext:
     aligners use: extend_async / fetch / extend, cost_per_cand, stalls,
     up_bytes / up_waves, CHUNK; ``up_cand_max`` is the largest wave's
     candidate count and ``down_bytes`` counts the result bytes
-    copied back.  The fetch watchdog is not ported (on a local card it
-    would hide a device failure), so ``stalls`` stays 0.
+    copied back.
+
+    ``fetch`` keeps basal_tpu's stall watchdog (knobs, timeout and
+    exemption) but not its answer to a stall.  basal_tpu evaluates a
+    stalled wave on the host and carries on, which suits a remote chip
+    behind a tunnel.  On a local card a wave far past its expected time
+    means the card is hung or contended, and carrying on would hide that:
+    here the stall is counted in ``stalls`` and raised.
 
     A gapped wave of CHUNK candidates holds (1 + 28 + 56*gap) bytes per
     candidate of pinned host memory until it is fetched: 826 MB at gap 3."""
@@ -256,17 +266,61 @@ class TorchDeviceContext:
                 else:
                     out = (extend_counts_blob(self.ref32, dblob, **shape),)
             self.down_bytes += sum(t.numel() * t.element_size() for t in out)
-            waves.append(download(C, out, t0, (staging, dblob)))
+            waves.append(download(C, U, E, out, t0, (staging, dblob)))
         return waves
+
+    # watchdog: a wave not done this multiple of its expected wall (the
+    # measured cost_per_cand x C, floored by BASAL_TPU_WATCHDOG_MIN seconds,
+    # default 3) after its wait began is declared stalled.  Armed once the
+    # cost is measured and the first fetch (kernel build and load) is past;
+    # BASAL_TPU_WATCHDOG=0 disables it.
+    WATCHDOG_FACTOR = 8.0
+
+    def watchdog_timeout(self, C: int) -> Optional[float]:
+        """Seconds a wave of C candidates may take once its wait has begun,
+        or None while the watchdog is unarmed or disabled."""
+        cpc = self.cost_per_cand
+        if (self._meas_skip or cpc is None
+                or os.environ.get("BASAL_TPU_WATCHDOG", "1") in ("", "0")):
+            return None
+        return max(float(os.environ.get("BASAL_TPU_WATCHDOG_MIN") or 3),
+                   self.WATCHDOG_FACTOR * cpc * max(C, 1))
+
+    def _wait(self, w: _Wave):
+        """Block until the wave's copies are done.  One ``query()`` when
+        they already are; else poll (back-off up to 1 ms) until the
+        watchdog's deadline, past which the stall is counted and raised.
+        Unarmed, ``synchronize()``.  A CPU wave has no event."""
+        if w.event is None or w.event.query():
+            return
+        timeout = self.watchdog_timeout(w.C)
+        if timeout is None:
+            w.event.synchronize()
+            return
+        deadline = time.monotonic() + timeout
+        delay = 1e-5
+        while not w.event.query():
+            left = deadline - time.monotonic()
+            if left <= 0:
+                self.stalls += 1
+                raise RuntimeError(
+                    f"device wave stalled: C={w.C} U={w.U} E={w.E} "
+                    f"gap={self.params.gap} not done after {timeout:.6g} s "
+                    f"(watchdog {self.WATCHDOG_FACTOR:g} x cost_per_cand "
+                    f"{self.cost_per_cand:.6g} s x C, floor "
+                    f"BASAL_TPU_WATCHDOG_MIN); stall #{self.stalls}")
+            time.sleep(min(delay, left))
+            delay = min(2 * delay, 1e-3)
 
     def fetch(self, waves: List[_Wave]):
         """Wait for the waves; (counts, pos0, pos1) as int32 arrays over all
         of them, the position lists None when ungapped (the contract of
-        basal_tpu's DeviceContext.fetch)."""
+        basal_tpu's DeviceContext.fetch).  A wave that outlasts the watchdog
+        raises RuntimeError; unlike basal_tpu's fetch, it is never evaluated
+        on the host instead (see the class docstring)."""
         outs = []
         for w in waves:
-            if w.event is not None:
-                w.event.synchronize()
+            self._wait(w)
             outs.append([t.numpy().astype(np.int32) for t in w.out])
             if w.C >= 16384:
                 if self._meas_skip:
@@ -379,7 +433,7 @@ def run_single_end(params: AlignParams, ref_path: str, reads_path: str,
                    device=None, index_factory=None):
     """Align ``reads_path`` against ``ref_path`` and write SAM bytes to
     ``out_fh``.  Returns the (first) aligner, whose ``stage`` counts where
-    candidates were evaluated.
+    candidates were evaluated; with -p N its ``peers`` lists all N.
 
     ``index_factory(ref, params)`` replaces the dense seed index, as a
     multi-process run does with ``parallel.multihost.TorchRoutedSeedIndex``.
@@ -472,6 +526,7 @@ def _run_single_end(params, ref_path, reads_path, out_fh, command_line, log,
         runner.shutdown()
         reader.close()
         _summary(log, reader, params, t0, runner.counters(), runner.aligners)
+        runner.aligners[0].peers = runner.aligners
         return runner.aligners[0]
 
     aligner = TorchSingleEndAligner(params, ref, index, device=device)

@@ -162,6 +162,9 @@ def params_from_args(argv, opts, flags) -> AlignParams:
 
 
 def main(argv=None):
+    """Run the aligner on ``argv`` (default: the command line).  Returns
+    the aligner of the run (with -p N, the first of them; see
+    ``align.pipeline.run_single_end``)."""
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv:
         _usage()
@@ -195,15 +198,16 @@ def main(argv=None):
 
     out_path = opts.get("o")
     if out_path is None:
-        runner(getattr(sys.stdout, "buffer", sys.stdout))
+        aligner = runner(getattr(sys.stdout, "buffer", sys.stdout))
         sys.stdout.flush()
     elif out_path.endswith(".bam"):
         from .toolkit.bamio import BamWriter
         with BamWriter(out_path) as bw:
-            runner(bw)
+            aligner = runner(bw)
     else:
         with open(out_path, "wb") as fh:
-            runner(fh)
+            aligner = runner(fh)
+    return aligner
 
 
 if __name__ == "__main__":

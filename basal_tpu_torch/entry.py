@@ -131,7 +131,7 @@ def dryrun_multichip(n_devices: int, devices=None) -> dict:
                 raise AssertionError(f"{name}: mesh {part} differ from the "
                                      f"single context")
         report[name] = {"candidates": int(table.loc.size),
-                        "waves": ctx.up_waves}
+                        "waves": ctx.up_waves, "stalls": ctx.stalls}
     return report
 
 

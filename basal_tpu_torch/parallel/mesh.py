@@ -216,7 +216,7 @@ class ShardedTorchDeviceContext(TorchDeviceContext):
                     merged = self._merge_processes(merged)
                 self.down_bytes += sum(t.numel() * t.element_size()
                                        for t in merged)
-                waves.append(download(c, merged, t0, tuple(keep)))
+                waves.append(download(c, U, E, merged, t0, tuple(keep)))
         return waves
 
 

@@ -127,6 +127,7 @@ def main(argv=None) -> int:
     dev = aligner._dev
     if dev is not None:
         stats["device_waves"] = dev.up_waves
+        stats["stalls"] = dev.stalls
         if dev.meas_n:
             stats["extend_s_per_cand"] = dev.meas_t / dev.meas_n
             stats["extend_cands_measured"] = dev.meas_n

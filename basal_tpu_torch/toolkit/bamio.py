@@ -8,9 +8,8 @@ BGZF: gzip members with the BC extra field carrying the compressed block
 size; EOF marker block appended on close.  Records follow the SAM/BAM spec
 the reference's libbam (samtools 0.1.18) understands.
 
-Copied from ``basal_tpu/toolkit/bamio.py`` at cb4d597: the port imports
-nothing of basal_tpu.  Changes: removed iter_bam_sam_lines, the toolkit's
-streaming reader, which no path of the port calls.
+Copied from ``basal_tpu/toolkit/bamio.py`` at b9f8fd4: the port imports
+nothing of basal_tpu.  Changes: none.
 """
 
 from __future__ import annotations
@@ -405,3 +404,72 @@ def decode_records_py(raw: bytes, refs: List[tuple]) -> List[str]:
         out.append("\t".join(fields + tags))
     return out
 
+
+def iter_bam_sam_lines(path: str, chunk_bytes: int = 1 << 23):
+    """Stream a BAM file as SAM lines (header lines first) in bounded
+    memory: BGZF blocks are walked one at a time, complete records are
+    batched into ~chunk_bytes buffers and decoded via the C twin
+    (decode_records_py fallback per chunk).  Replaces whole-file
+    decode_bam_to_sam for toolkit streaming paths (bamutil view/sort/fastq
+    on multi-GB BAMs)."""
+    from .bamindex import iter_bgzf_blocks
+    from ..native import bam_records_to_sam
+    blocks = iter_bgzf_blocks(path)
+    buf = bytearray()
+
+    def fill(need: int) -> bool:
+        while len(buf) < need:
+            try:
+                buf.extend(next(blocks)[1])
+            except StopIteration:
+                return False
+        return True
+
+    if not fill(12) or bytes(buf[:4]) != b"BAM\x01":
+        raise ValueError(f"not a BAM file: {path}")
+    l_text = struct.unpack_from("<i", buf, 4)[0]
+    fill(8 + l_text + 4)
+    text = bytes(buf[8:8 + l_text]).decode(errors="replace")
+    off = 8 + l_text
+    n_ref = struct.unpack_from("<i", buf, off)[0]
+    off += 4
+    refs = []
+    for _ in range(n_ref):
+        fill(off + 4)
+        ln = struct.unpack_from("<i", buf, off)[0]
+        fill(off + 8 + ln)
+        refs.append((bytes(buf[off + 4:off + 4 + ln - 1]).decode(),
+                     struct.unpack_from("<i", buf, off + 4 + ln)[0]))
+        off += 8 + ln
+    for line in text.splitlines():
+        if line:
+            yield line
+    del buf[:off]
+    names = [n for n, _ in refs]
+
+    def decode(chunk: bytes):
+        body = bam_records_to_sam(memoryview(chunk), names)
+        if body is not None:
+            for line in body.decode("latin1").splitlines():
+                yield line
+        else:
+            yield from decode_records_py(chunk, refs)
+
+    while True:
+        if not fill(4):
+            if buf:
+                raise ValueError("truncated BAM record size")
+            return
+        # extend to a batch of complete records >= chunk_bytes
+        end = 0
+        while True:
+            if not fill(end + 4):
+                break
+            sz = struct.unpack_from("<i", buf, end)[0]
+            if not fill(end + 4 + sz):
+                raise ValueError("truncated BAM record")
+            end += 4 + sz
+            if end >= chunk_bytes:
+                break
+        yield from decode(bytes(buf[:end]))
+        del buf[:end]

@@ -19,12 +19,18 @@ Phases (any failure raises and the script exits non-zero):
      version are timed at C = 2^20 candidates, W = 7 words (100 bp),
      U = 8192 rows over a 50 Mbp reference (the count kernel in all three
      modes, the gap kernel at gap 3), beside the least time the card could
-     take for the same work (``bound``), and the count kernel once more over
+     take for the same work (``bound``), and both kernels once more over
      a 2 Gbp reference, out of L2 (four waves of different candidates in
      turn).  A kernel's time is the card's own: the
      mean duration of its launches in torch.profiler's kernel events.  The
      CUDA events around back-to-back wrapper calls are printed beside it as
      the time per call, host included;
+  2c. the fetch watchdog on a real CUDA event: a TorchDeviceContext over
+     the 50 Mbp timing reference, armed with a measured cost of 1e-12 s
+     per candidate and BASAL_TPU_WATCHDOG_MIN=0, is handed the gap-3
+     timing wave the moment it is launched; its fetch must raise and count
+     one stall.  A second wave on the same context, with the watchdog off,
+     must then equal the plain version;
   2b. the dp x rs mesh: on real waves (count kernel under C:T, gap kernel
      under T:- -g 3), ShardedTorchDeviceContext at 1x4, 2x2 and 4x1 over
      [cuda:i % cards] must equal TorchDeviceContext element for element,
@@ -49,10 +55,28 @@ Phases (any failure raises and the script exits non-zero):
      byte-identical to phase 3's device-forced SAM, and the rs mesh that
      spans the two processes must equal the single context;
   3e. dryrun_multichip(4) of basal_tpu_torch.entry over [cuda:i % cards];
+  3f. the toolkit halves of the examples/ recipes, in this process, on the
+     port's card-aligned output.  GLORI/eTAM: phase 3's device-forced SAM
+     through bamutil view (to BAM), view -F 0xE04, sort and index, then
+     avgmod -M A:G -T RNA; the reads had half their A's turned to G, so
+     sum(N_mod) / sum(N_total) over the sites must lie in 0.40-0.60.
+     BID-seq: the first 50k reads of phase 3b aligned by the port's CLI to
+     BAM (-M T:- -n 1 -g 3 -R -u -S 1), device-forced and with the host
+     evaluator, whose decoded BAMs must be equal (@PG aside); then view -F
+     0xE04, sort, shiftD, sort and avgmod -M T:- -D M -T RNA -y 7 -m 1
+     (the 50k reads cover the 50 Mbp at 0.1x, so the default depth of 4
+     would leave almost no site); it must write sites, some of them with
+     deletions counted as modified.  Each step's wall is printed;
+  3g. where a fault could hide: SE multiway (-M A:CGT) and SE nt3 (-M C:T
+     -3) on 50k reads of 64-150 bp, each device-forced against the host
+     evaluator as in 3; SE A:G with -p 4, device-forced, whose SAM must
+     equal phase 3's -p 1 device-forced SAM;
   4. neither jax nor basal_tpu may have been imported.
 
 Each path of phase 3 starts with every launch count at 0; a path fails if
-its kernel did not launch once per device wave.
+its kernel did not launch once per device wave, or if a fetch watchdog of
+its device contexts counted a stall.  Whether pandas imports is printed:
+the toolkit's fdr and regmod need it, and are not run here.
 
 Data is made with numpy from a fixed seed under build/chip_smoke/ and
 removed at exit.  The last line of stdout is
@@ -72,6 +96,7 @@ SEED = 20261016
 GENOME = 50_000_000      # bench.py's realistic genome size
 N_READS = 200_000        # 5 batches: BATCH_NUM = 50k, cut at reader chunks
 N_PAIRS = 100_000
+N_SMALL = 50_000         # reads of the multiway, nt3 and BID-seq recipe runs
 READLEN = 100
 N_FRAC = 0.02            # reads given one N (exception rows in the blob)
 WAVE_READS = 20_000      # reads per phase-2 configuration
@@ -640,36 +665,115 @@ def count_timing(device, ref, label, waves=1, iters=50, plain_iters=5):
     return out
 
 
-def gap_kernel_timing(device, ref):
+def gap_kernel_timing(device, ref, label, waves=1, iters=20, plain_iters=3):
     """Phase 2, timing, gap kernel: kernel == plain, then both at the
-    timing shape over ``ref``, gap 3, oneway, in turns.  Returns {device_ms,
-    call_ms, plain_ms, bound_ms, bound_by} as count_timing does."""
+    timing shape over ``ref``, gap 3, oneway, in turns; with ``waves`` > 1
+    that many waves of different candidates alternate, as in count_timing.
+    Returns {device_ms, call_ms, plain_ms, bound_ms, bound_by} as
+    count_timing does."""
     import torch
     from basal_tpu_torch.ops.extend import extend_kernel_blob
     from basal_tpu_torch.ops.extend_cuda import extend_gap_blob
-    ref32, blob, shape = synthetic_wave("oneway", device, ref)
+    made = [synthetic_wave("oneway", device, ref, seed=SEED + 2 + k)
+            for k in range(waves)]
+    ref32, shape = made[0][0], made[0][2]
     shape["gap"] = BENCH_GAP
-    got = extend_gap_blob(ref32, blob, **shape)
-    want = extend_kernel_blob(ref32, blob, **shape)
-    if not all(torch.equal(a, b) for a, b in zip(got, want)):
-        raise AssertionError("gap kernel != plain at timing shape")
-    del got, want
+    blobs = [m[1] for m in made]
+    for blob in blobs:
+        got = extend_gap_blob(ref32, blob, **shape)
+        want = extend_kernel_blob(ref32, blob, **shape)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"gap kernel != plain at the {label} shape")
+        del got, want
     dev, calls, plains = timed_kernel(
-        "gap_blob_kernel", lambda: extend_gap_blob(ref32, blob, **shape),
-        lambda: extend_kernel_blob(ref32, blob, **shape), 20, 3)
+        "gap_blob_kernel",
+        lambda: [extend_gap_blob(ref32, b, **shape) for b in blobs],
+        lambda: [extend_kernel_blob(ref32, b, **shape) for b in blobs],
+        iters, plain_iters, per_call=waves)
     s = (1 << 20) / shape["C"]
-    b_ms, b_by = bound(blob, shape, gap=BENCH_GAP)
-    log(f"timing [gap {BENCH_GAP} oneway] C={shape['C']} W={shape['W']} "
-        f"U={shape['U']}: device {dev * s:.4f} ms, per call host included "
-        f"{calls[0] * s:.4f} / {calls[1] * s:.4f} ms, plain "
-        f"{plains[0] * s:.4f} / {plains[1] * s:.4f} ms, bound "
-        f"{b_ms * s:.4f} ms ({b_by}), device at {100 * b_ms / dev:.1f}% of "
-        f"it, per 2^20 candidates")
-    del blob
+    b_ms, b_by = bound(blobs[0], shape, gap=BENCH_GAP)
+    log(f"timing [gap {BENCH_GAP} oneway, {label}] C={shape['C']} "
+        f"W={shape['W']} U={shape['U']}, {waves} wave(s): device "
+        f"{dev * s:.4f} ms, per call host included {calls[0] * s:.4f} / "
+        f"{calls[1] * s:.4f} ms, plain {plains[0] * s:.4f} / "
+        f"{plains[1] * s:.4f} ms, bound {b_ms * s:.4f} ms ({b_by}), device "
+        f"at {100 * b_ms / dev:.1f}% of it, per 2^20 candidates")
+    del made, blobs
     torch.cuda.empty_cache()
     return dict(device_ms=dev * s, call_ms=[c * s for c in calls],
                 plain_ms=[p * s for p in plains], bound_ms=b_ms * s,
                 bound_by=b_by)
+
+
+def watchdog_check(device, ref):
+    """Phase 2c: the fetch watchdog on a real CUDA event.  A context over
+    ``ref`` (synthetic_reference's), armed as after a measured fetch with
+    1e-12 s per candidate and BASAL_TPU_WATCHDOG_MIN=0, gets the gap-3
+    timing wave the moment it is launched: the copy of its 207 MB of
+    results alone takes milliseconds, far past the 8.4 us timeout, so the
+    fetch must raise and count one stall.  Then, the card drained and the
+    watchdog off, a second wave on the same context must equal the plain
+    version.  Returns (timeout s, s from fetch to the raise)."""
+    import types
+
+    import numpy as np
+    import torch
+    from basal_tpu_torch.align.pipeline import TorchDeviceContext, download
+    from basal_tpu_torch.config import AlignParams
+    from basal_tpu_torch.ops.extend import extend_kernel_blob
+    from basal_tpu_torch.ops.extend_cuda import extend_gap_blob
+
+    _, blob, shape = synthetic_wave("oneway", device, ref)
+    shape["gap"] = BENCH_GAP
+    host = types.SimpleNamespace(
+        ref32=ref[0].cpu().numpy().view(np.uint32).reshape(2, -1))
+    ctx = TorchDeviceContext(host, AlignParams(conversion="C:T", randseed=1,
+                                               gap=BENCH_GAP), device)
+    if ctx.mode != shape["mode"] or ctx.nw != shape["nw"]:
+        raise AssertionError(f"context {ctx.mode} nw {ctx.nw} for {shape}")
+    ctx.meas_t, ctx.meas_n, ctx._meas_skip = 1e-12, 1, 0
+    C, U, E = shape["C"], shape["U"], shape["E"]
+
+    def wave():
+        out = extend_gap_blob(ctx.ref32, blob, **shape)
+        return download(C, U, E, out, time.time(), (blob,))
+
+    knobs = ("BASAL_TPU_WATCHDOG", "BASAL_TPU_WATCHDOG_MIN")
+    saved = {k: os.environ.pop(k, None) for k in knobs}
+    os.environ["BASAL_TPU_WATCHDOG_MIN"] = "0"
+    timeout = ctx.watchdog_timeout(C)
+    w = wave()
+    t0 = time.perf_counter()
+    try:
+        ctx.fetch([w])
+        raised = None
+    except RuntimeError as e:
+        raised = str(e)
+    t_raise = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    del w
+    if raised is None or "stalled" not in raised or ctx.stalls != 1:
+        raise AssertionError(f"the watchdog did not fire: {raised!r}, "
+                             f"stalls {ctx.stalls}")
+    log(f"watchdog: timeout {timeout:.3g} s, raised after {t_raise:.6f} s, "
+        f"stalls {ctx.stalls}: {raised}")
+    os.environ["BASAL_TPU_WATCHDOG"] = "0"
+    got = ctx.fetch([wave()])
+    for k, v in saved.items():
+        os.environ.pop(k, None)
+        if v is not None:
+            os.environ[k] = v
+    want = extend_kernel_blob(ctx.ref32, blob, **shape)
+    for part, a, b in zip(("counts", "pos0", "pos1"), got, want):
+        if not np.array_equal(a, b.cpu().numpy().astype(np.int32)):
+            raise AssertionError(f"after a stall, {part} != plain version")
+    if ctx.stalls != 1:
+        raise AssertionError(f"stalls {ctx.stalls} after the second fetch")
+    log(f"watchdog: the same context then fetched a wave of {C} candidates "
+        f"equal to the plain version, watchdog off")
+    del ctx, blob
+    torch.cuda.empty_cache()
+    return timeout, t_raise
 
 
 def device_profile(run):
@@ -746,12 +850,13 @@ def device_vs_host(label, argv, files, fasta, work, device, n_reads,
             n_al = aligner.stats()[0]
             visit = st["cand_visit"]
         dev = aligner._dev
+        stalls = dev.stalls if dev is not None else 0
         log(f"{label} BASAL_TPU_HOST_EVAL={mode}: ref "
             f"{timings['t_ref']:.3f} s, index {timings['t_index']:.3f} s, "
             f"align {wall:.3f} s = {n_reads / wall:.1f} "
             f"{'pairs' if pe else 'reads'}/s; aligned {n_al}/{n_reads}; "
             f"candidates device {st['cand_device']} host {st['cand_host']} "
-            f"visit {visit}; launches {launches}; batches "
+            f"visit {visit}; launches {launches}; stalls {stalls}; batches "
             + ", ".join(f"{k} {v}" for k, v in st.items()
                         if "batches" in k and v))
         if mode == "0":
@@ -768,6 +873,8 @@ def device_vs_host(label, argv, files, fasta, work, device, n_reads,
                                      f"{dev.up_waves} {kernel} waves")
             if n_al < min_aligned * n_reads:
                 raise AssertionError(f"only {n_al} of {n_reads} aligned")
+            if stalls:
+                raise AssertionError(f"{label}: {stalls} fetch stalls")
             result.update(launches=launches[kernel], align_s=wall,
                           rate=n_reads / wall, waves=dev.up_waves,
                           cand=st["cand_device"], up_bytes=dev.up_bytes,
@@ -784,10 +891,11 @@ def device_vs_host(label, argv, files, fasta, work, device, n_reads,
         def session():
             wall, busy, launched, aligner = device_profile(
                 lambda: drive(work / f"{label}_prof.sam", {}))
-            if aligner._dev.up_waves != waves:
+            if aligner._dev.up_waves != waves or aligner._dev.stalls:
                 raise AssertionError(f"{label}: {aligner._dev.up_waves} "
                                      f"waves under the profiler, {waves} "
-                                     f"before")
+                                     f"before; {aligner._dev.stalls} "
+                                     f"stalls")
             return (wall, busy, aligner), launched[name]
 
         (wall, busy, aligner), durs = recorded(session, name, waves)
@@ -958,7 +1066,7 @@ def multiprocess_run(fasta, fq, work, single_sam, n_reads=N_READS):
     for st in stats:
         m = st["mesh"]
         if not (st["launches"]["count"] > 0 and st["exchanged_queries"] > 0
-                and st["exchanged_locs"] > 0 and m["ok"]
+                and st["exchanged_locs"] > 0 and st["stalls"] == 0 and m["ok"]
                 and m["launches"] == m["waves"] > 0):
             raise AssertionError(f"worker {st['pid']}: {st}")
     t_align = max(st["t_align"] for st in stats)
@@ -975,7 +1083,8 @@ def multiprocess_run(fasta, fq, work, single_sam, n_reads=N_READS):
             f"t_exchange {st['t_exchange']:.3f} s, t_wait "
             f"{st['t_wait']:.3f} s, {st['exchanged_queries']} queries, "
             f"{st['exchanged_locs']} locs; launches {st['launches']} over "
-            f"{st.get('device_waves', 0)} waves; mesh check "
+            f"{st.get('device_waves', 0)} waves, stalls {st['stalls']}; mesh "
+            f"check "
             f"{m['candidates']} candidates, {m['waves']} waves, "
             f"{m['t_mesh_extend']:.3f} s")
     return {"rate": n_reads / t_align, "wall": wall, "stats": stats}
@@ -993,7 +1102,201 @@ def dryrun():
     launches = (extend_counts_blob.launches, extend_gap_blob.launches)
     if min(launches) == 0:
         raise AssertionError(f"dryrun_multichip launched {launches}")
+    if any(report[k]["stalls"] for k in ("counts", "gap")):
+        raise AssertionError(f"dryrun_multichip stalled: {report}")
     log(f"dryrun_multichip(4): ok {report}; launches count/gap {launches}")
+
+
+def sam_body(data: bytes):
+    """SAM lines without @PG (its command line differs between runs)."""
+    return [ln for ln in data.splitlines(keepends=True)
+            if not ln.startswith(b"@PG")]
+
+
+def threaded_run(fasta, fq, single_sam, work, device, n_reads=N_READS,
+                 n_workers=4):
+    """Phase 3g, -p 4: run_single_end with four worker aligners, every
+    wave forced onto the card; launches must equal the waves summed over
+    the four aligners' contexts, and the SAM must be phase 3's -p 1
+    device-forced SAM (single_sam), @PG aside."""
+    from basal_tpu_torch.align.pipeline import run_single_end
+    from basal_tpu_torch.cli import params_from_args, parse_args
+    from basal_tpu_torch.ops.extend_cuda import (extend_counts_blob,
+                                                 extend_gap_blob)
+    argv = ["-d", str(fasta), "-a", str(fq), "-M", "A:G", "-p",
+            str(n_workers), "-S", "1", "-u", "-V", "0"]
+    params = params_from_args(argv, *parse_args(argv))
+    os.environ["BASAL_TPU_HOST_EVAL"] = "0"
+    for w in (extend_counts_blob, extend_gap_blob):
+        w.launches = 0
+    timings = {}
+    out = work / f"se A:G p{n_workers}.sam"
+    with open(out, "wb") as fh:
+        first = run_single_end(params, str(fasta), str(fq), out_fh=fh,
+                               command_line="chip_smoke", timings=timings,
+                               device=device)
+    wall = time.time() - timings["t_align_start"]
+    launches = (extend_counts_blob.launches, extend_gap_blob.launches)
+    os.environ.pop("BASAL_TPU_HOST_EVAL")
+    peers = first.peers
+    devs = [a._dev for a in peers if a._dev is not None]
+    waves = sum(d.up_waves for d in devs)
+    stalls = sum(d.stalls for d in devs)
+    host = sum(a.stage["cand_host"] + a.stage["cand_visit"] for a in peers)
+    log(f"se A:G -p {n_workers}: align {wall:.3f} s = "
+        f"{n_reads / wall:.1f} reads/s; {len(devs)} of {len(peers)} "
+        f"aligners used the card; waves {waves}, launches count/gap "
+        f"{launches}, stalls {stalls}, host candidates {host}")
+    if len(peers) != n_workers or not waves or launches != (waves, 0) \
+            or stalls or host:
+        raise AssertionError(f"-p {n_workers}: {len(peers)} aligners, "
+                             f"{waves} waves, launches {launches}, stalls "
+                             f"{stalls}, host candidates {host}")
+    if sam_body(out.read_bytes()) != sam_body(single_sam.read_bytes()):
+        raise AssertionError(f"-p {n_workers} SAM differs from -p 1")
+    log(f"se A:G -p {n_workers}: SAM == -p 1 device-forced SAM")
+    return {"rate": n_reads / wall, "waves": waves, "launches": launches[0]}
+
+
+def toolkit_steps(label, steps, work):
+    """Run each (name, main, argv) toolkit step in this process, its
+    stderr to ``work/toolkit.log``; returns {name: wall s}."""
+    import contextlib
+    times = {}
+    with open(work / "toolkit.log", "a") as err, \
+            contextlib.redirect_stderr(err):
+        for name, fn, argv in steps:
+            t0 = time.perf_counter()
+            rc = fn([str(a) for a in argv])
+            times[name] = time.perf_counter() - t0
+            if rc not in (0, None):
+                raise AssertionError(f"{label} {name}: exit {rc}")
+    log(f"{label} toolkit steps: "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in times.items()))
+    return times
+
+
+def avgmod_rows(path):
+    """(rows, sum N_mod, sum N_total) of an _AvgMod.tsv."""
+    lines = Path(path).read_text().splitlines()
+    if not lines or not lines[0].startswith("chr\tpos"):
+        raise AssertionError(f"{path}: no AvgMod header")
+    cols = [ln.split("\t") for ln in lines[1:]]
+    return (len(cols), sum(int(c[6]) for c in cols),
+            sum(int(c[7]) for c in cols))
+
+
+def glori_recipe(fasta, sam, work):
+    """Phase 3f, GLORI/eTAM: the toolkit half of
+    examples/pipeline-eTAM-GLORI.sh on phase 3's device-forced SAM (no
+    transcriptome, so no mergeBAM).  bench_reads turned each A of the
+    forward strand into G with p = 0.5, so the unconverted share of the
+    covered A sites, sum(N_mod) / sum(N_total), lies near 0.5 whichever
+    strand avgmod -T RNA reads them on."""
+    from basal_tpu_torch.toolkit import bamutil
+    from basal_tpu_torch.toolkit import cli as kit
+    d = work / "glori"
+    d.mkdir()
+    times = toolkit_steps("glori", [
+        ("view SAM to BAM", bamutil.main,
+         ["view", sam, "-o", d / "smp.map2genome.bam"]),
+        ("view -F 0xE04", bamutil.main,
+         ["view", d / "smp.map2genome.bam", "-F", "0xE04",
+          "-o", d / "smp.genomeAlign.unsorted.bam"]),
+        ("sort", bamutil.main, ["sort", d / "smp.genomeAlign.unsorted.bam",
+                                "-o", d / "smp.genomeAlign.bam"]),
+        ("index", bamutil.main, ["index", d / "smp.genomeAlign.bam"]),
+        ("avgmod", kit.main, ["avgmod", d / "smp.genomeAlign.bam", fasta,
+                              "-o", d / "smp", "-M", "A:G", "-T", "RNA"]),
+    ], work)
+    n_rows, n_mod, n_total = avgmod_rows(d / "smp_AvgMod.tsv")
+    ratio = n_mod / max(n_total, 1)
+    log(f"glori: {n_rows} sites in smp_AvgMod.tsv, sum(N_mod) / "
+        f"sum(N_total) = {n_mod} / {n_total} = {ratio:.6f}")
+    if not n_rows or not 0.40 <= ratio <= 0.60:
+        raise AssertionError(f"glori: {n_rows} sites, ratio {ratio}")
+    return {"times": times, "rows": n_rows, "ratio": ratio}
+
+
+def bidseq_recipe(fasta, fq_bid, work, device, n_reads=N_SMALL):
+    """Phase 3f, BID-seq: the first n_reads of phase 3b's reads aligned by
+    the port's CLI to BAM as examples/pipeline-BID-seq.sh aligns them,
+    device-forced (gap kernel, one launch per wave) and with the host
+    evaluator: the decoded BAMs must be equal, @PG aside.  Then the
+    recipe's toolkit steps on the genome BAM (no transcriptome, so no
+    mergeBAM), with avgmod at -m 1: 50k reads cover the 50 Mbp at 0.1x.
+    bidseq_reads dropped each T with p = 0.04, so under -D M some covered
+    T sites must count as modified (deletions)."""
+    from basal_tpu_torch import cli
+    from basal_tpu_torch.ops.extend_cuda import (extend_counts_blob,
+                                                 extend_gap_blob)
+    from basal_tpu_torch.toolkit import bamutil
+    from basal_tpu_torch.toolkit import cli as kit
+    from basal_tpu_torch.toolkit.bamio import decode_bam_to_sam
+    d = work / "bid"
+    d.mkdir()
+    with open(fq_bid, "rb") as f:
+        head = b"".join(f.readline() for _ in range(4 * n_reads))
+    (d / "reads.fq").write_bytes(head)
+    argv = ["-a", str(d / "reads.fq"), "-d", str(fasta), "-M", "T:-", "-n",
+            "1", "-g", "3", "-R", "-u", "-S", "1", "-V", "0"]
+    walls, dev_launches = {}, None
+    for mode in ("0", "1"):
+        os.environ["BASAL_TPU_HOST_EVAL"] = mode
+        for w in (extend_counts_blob, extend_gap_blob):
+            w.launches = 0
+        t0 = time.perf_counter()
+        aligner = cli.main(argv + ["-o", str(d / f"bid_{mode}.bam")])
+        walls[mode] = time.perf_counter() - t0
+        launches = (extend_counts_blob.launches, extend_gap_blob.launches)
+        st, dev = aligner.stage, aligner._dev
+        waves = dev.up_waves if dev is not None else 0
+        stalls = dev.stalls if dev is not None else 0
+        log(f"bid CLI BASAL_TPU_HOST_EVAL={mode}: {walls[mode]:.3f} s "
+            f"(reference, index and align) = {n_reads / walls[mode]:.1f} "
+            f"reads/s; candidates device {st['cand_device']} host "
+            f"{st['cand_host']} visit {st['cand_visit']}; waves {waves}, "
+            f"launches count/gap {launches}, stalls {stalls}")
+        if mode == "0" and not (waves and launches == (0, waves)
+                                and st["cand_host"] == 0
+                                and st["cand_visit"] == 0 and not stalls):
+            raise AssertionError(f"bid CLI device-forced: {st}")
+        if mode == "0":
+            dev_launches = launches[1]
+        if mode == "1" and (st["cand_device"] or any(launches)):
+            raise AssertionError("bid CLI host-evaluator run used the card")
+    os.environ.pop("BASAL_TPU_HOST_EVAL")
+    bams = [decode_bam_to_sam(str(d / f"bid_{m}.bam")).encode("latin1")
+            for m in "01"]
+    body = sam_body(bams[0])
+    n_body = sum(not ln.startswith(b"@") for ln in body)
+    same = body == sam_body(bams[1])
+    if n_body != n_reads or not same:
+        raise AssertionError(f"bid: {n_body} records; device-forced BAM "
+                             f"== host evaluator's: {same}")
+    log(f"bid: BAM device-forced == host evaluator, {n_body} records")
+    times = toolkit_steps("bid", [
+        ("view -F 0xE04", bamutil.main,
+         ["view", d / "bid_0.bam", "-F", "0xE04", "-o", d / "smp.tmp.bam"]),
+        ("sort", bamutil.main, ["sort", d / "smp.tmp.bam",
+                                "-o", d / "smp.genomeAlign.bam"]),
+        ("shiftD", kit.main, ["shiftD", d / "smp.genomeAlign.bam",
+                              "-o", d / "smp.gshift"]),
+        ("sort shifted", bamutil.main,
+         ["sort", d / "smp.gshift.bam",
+          "-o", d / "smp.genomeAlign.corrected.bam"]),
+        ("avgmod", kit.main, ["avgmod", d / "smp.genomeAlign.corrected.bam",
+                              fasta, "-o", d / "smp", "-M", "T:-", "-D", "M",
+                              "-T", "RNA", "-y", "7", "-m", "1"]),
+    ], work)
+    n_rows, n_mod, n_total = avgmod_rows(d / "smp_AvgMod.tsv")
+    log(f"bid: {n_rows} sites in smp_AvgMod.tsv, sum(N_mod) / sum(N_total) "
+        f"= {n_mod} / {n_total}")
+    if not (n_rows and n_mod):
+        raise AssertionError(f"bid: avgmod wrote {n_rows} sites, {n_mod} "
+                             f"modified")
+    return {"times": times, "rows": n_rows, "cli_s": walls,
+            "launches": dev_launches}
 
 
 def main() -> int:
@@ -1015,6 +1318,13 @@ def main() -> int:
     log(f"torch {torch.__version__} CUDA {torch.version.cuda} "
         f"python {sys.version.split()[0]} device "
         f"{torch.cuda.get_device_name(0)}")
+    try:
+        import pandas
+        log(f"pandas {pandas.__version__} imports (the toolkit's fdr and "
+            f"regmod need it; neither runs here)")
+    except ImportError as e:
+        log(f"pandas does not import ({e}): the toolkit's fdr and regmod "
+            f"would fail here; neither runs here")
 
     # phase 1: build the kernels and the host engine side by side
     from concurrent.futures import ThreadPoolExecutor
@@ -1055,6 +1365,10 @@ def main() -> int:
         write_fastq(fq, bench_reads(rng, g, N_READS))
         fq_bid = work / "bidseq.fq"
         write_fastq(fq_bid, bidseq_reads(rng, g, N_READS))
+        fq_multi = work / "multiway.fq"
+        write_fastq(fq_multi, mixed_reads(rng, g, N_SMALL, "A:CGT"))
+        fq_nt3 = work / "nt3.fq"
+        write_fastq(fq_nt3, mixed_reads(rng, g, N_SMALL, "C:T"))
         pairs = {}
         for gap in (0, 2):
             pairs[gap] = (work / f"r1_g{gap}.fq", work / f"r2_g{gap}.fq")
@@ -1065,12 +1379,16 @@ def main() -> int:
         worst_gap = gap_kernel_checks(fasta, g, work, device)
         ref = synthetic_reference(device)
         times = count_timing(device, ref, "50 Mbp")
-        gap_times = gap_kernel_timing(device, ref)
+        gap_times = gap_kernel_timing(device, ref, "50 Mbp")
+        watchdog = watchdog_check(device, ref)
         del ref
         ref = synthetic_reference(device, GENOME_OUT_OF_L2)
         times_out = count_timing(device, ref, "2 Gbp",
                                  waves=WAVES_OUT_OF_L2, iters=25,
                                  plain_iters=2)
+        gap_out = gap_kernel_timing(device, ref, "2 Gbp",
+                                    waves=WAVES_OUT_OF_L2, iters=10,
+                                    plain_iters=1)
         del ref
         torch.cuda.empty_cache()
         mesh_walls = mesh_checks(fasta, g, work, device)
@@ -1088,6 +1406,14 @@ def main() -> int:
                                 "gap", 0.5)
         multi = multiprocess_run(fasta, fq, work, work / "se A:G_0.sam")
         dryrun()
+        glori = glori_recipe(fasta, work / "se A:G_0.sam", work)
+        bid_kit = bidseq_recipe(fasta, fq_bid, work, device)
+        multiway = device_vs_host("se A:CGT", ["-M", "A:CGT"], (fq_multi,),
+                                  fasta, work, device, N_SMALL, "count", 0.3)
+        nt3 = device_vs_host("se C:T -3", ["-M", "C:T", "-3"], (fq_nt3,),
+                             fasta, work, device, N_SMALL, "count", 0.3)
+        threaded = threaded_run(fasta, fq, work / "se A:G_0.sam", work,
+                                device)
 
     # phase 4: neither jax nor the JAX package
     for name in ("jax", "basal_tpu"):
@@ -1097,7 +1423,9 @@ def main() -> int:
     for label, r, n, unit in (("se A:G", main, N_READS, "reads"),
                               ("se T:- -g 3", bid, N_READS, "reads"),
                               ("pe C:T", pe, N_PAIRS, "pairs"),
-                              ("pe C:T -g 2", pe_gap, N_PAIRS, "pairs")):
+                              ("pe C:T -g 2", pe_gap, N_PAIRS, "pairs"),
+                              ("se A:CGT", multiway, N_SMALL, "reads"),
+                              ("se C:T -3", nt3, N_SMALL, "reads")):
         log(f"{label}: {r['rate']:.1f} {unit}/s device-forced, "
             f"{r['host_rate']:.1f} with the host evaluator, over {n} {unit} "
             f"({r['waves']} waves, {r['cand']} candidates, {r['up_bytes']} "
@@ -1109,6 +1437,18 @@ def main() -> int:
         + " s, t_wait "
         + " / ".join(f"{st['t_wait']:.3f}" for st in multi["stats"])
         + f" s on {smi}")
+    log(f"se A:G -p 4: {threaded['rate']:.1f} reads/s device-forced "
+        f"against {main['rate']:.1f} at -p 1 ({threaded['waves']} waves) "
+        f"on {smi}")
+    for label, r in (("glori", glori), ("bid", bid_kit)):
+        log(f"{label} toolkit steps on the card machine's host: "
+            + ", ".join(f"{k} {v:.3f} s" for k, v in r["times"].items())
+            + f"; {r['rows']} sites on {smi}")
+    log(f"bid CLI to BAM over {N_SMALL} reads: device-forced "
+        f"{bid_kit['cli_s']['0']:.3f} s, host evaluator "
+        f"{bid_kit['cli_s']['1']:.3f} s (reference and index included); "
+        f"watchdog timeout {watchdog[0]:.3g} s, raised after "
+        f"{watchdog[1]:.6f} s on {smi}")
     for kernel, w in mesh_walls.items():
         log(f"mesh wall per wave [{kernel} kernel]: "
             + ", ".join(f"{k} {v:.3f} ms" for k, v in w.items())
@@ -1126,10 +1466,11 @@ def main() -> int:
                 f"ms, per call host included "
                 + " / ".join(f"{c:.4f}" for c in t["call_ms"])
                 + f" ms, bound {t['bound_ms']:.4f} ms per 2^20 on {smi}")
-    log(f"gap kernel [gap {BENCH_GAP} oneway, 50 Mbp]: device "
-        f"{gap_times['device_ms']:.4f} ms, per call host included "
-        + " / ".join(f"{c:.4f}" for c in gap_times["call_ms"])
-        + f" ms, bound {gap_times['bound_ms']:.4f} ms per 2^20 on {smi}")
+    for label, t in (("50 Mbp", gap_times), ("2 Gbp", gap_out)):
+        log(f"gap kernel [gap {BENCH_GAP} oneway, {label}]: device "
+            f"{t['device_ms']:.4f} ms, per call host included "
+            + " / ".join(f"{c:.4f}" for c in t["call_ms"])
+            + f" ms, bound {t['bound_ms']:.4f} ms per 2^20 on {smi}")
     one, one_out = times["oneway"], times_out["oneway"]
     kernels = [{
         "name": "count_blob_kernel", "route": "cuda",
@@ -1150,7 +1491,9 @@ def main() -> int:
         "plain_ms": sum(gap_times["plain_ms"]) / 2,
         "bound_ms": gap_times["bound_ms"], "bound_by": gap_times["bound_by"],
         "library_ms": None, "device_ms": gap_times["device_ms"],
-        "call_ms": sum(gap_times["call_ms"]) / 2}]
+        "call_ms": sum(gap_times["call_ms"]) / 2,
+        "ms_out_of_l2": gap_out["device_ms"],
+        "bound_ms_out_of_l2": gap_out["bound_ms"]}]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

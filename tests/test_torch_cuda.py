@@ -290,6 +290,48 @@ def test_gap_empty_wave_does_not_launch(cuda):
     assert extend_gap_blob.launches == before
 
 
+def test_watchdog_raises_on_a_real_event(cuda, monkeypatch):
+    """An armed context with a deadline of 0 (BASAL_TPU_WATCHDOG_MIN=0, a
+    cost of 1e-12 s per candidate) is handed a gapped wave of 2^18
+    candidates the moment it is launched: its 52 MB of results are still
+    being copied, so the fetch raises and counts one stall.  The same
+    context then fetches a wave with the watchdog off, equal to the plain
+    version."""
+    import types
+
+    from basal_tpu_torch.align.pipeline import TorchDeviceContext, download
+    from basal_tpu_torch.config import AlignParams
+    from basal_tpu_torch.ops.extend import extend_kernel_blob
+    from basal_tpu_torch.ops.extend_cuda import extend_gap_blob
+    C, U, W, E, nw = 1 << 18, 2048, 7, 1, 1 << 16
+    ref32, blob, shape = _random_blob("oneway", C, U, W, E, nw=nw, seed=5)
+    shape["gap"] = 3
+    ctx = TorchDeviceContext(
+        types.SimpleNamespace(ref32=ref32.view(np.uint32).reshape(2, nw)),
+        AlignParams(conversion="C:T", randseed=1, gap=3), cuda)
+    ctx.meas_t, ctx.meas_n, ctx._meas_skip = 1e-12, 1, 0
+    b = torch.from_numpy(blob).to(cuda)
+
+    def wave():
+        out = extend_gap_blob(ctx.ref32, b, **shape)
+        return download(C, U, E, out, 0.0, (b,))
+
+    monkeypatch.delenv("BASAL_TPU_WATCHDOG", raising=False)
+    monkeypatch.setenv("BASAL_TPU_WATCHDOG_MIN", "0")
+    assert ctx.watchdog_timeout(C) == pytest.approx(8e-12 * C)
+    with pytest.raises(RuntimeError, match=f"C={C} U={U} E={E} gap=3"):
+        ctx.fetch([wave()])
+    assert ctx.stalls == 1
+    torch.cuda.synchronize()
+    monkeypatch.setenv("BASAL_TPU_WATCHDOG", "0")
+    got = ctx.fetch([wave()])
+    want = extend_kernel_blob(ctx.ref32, b, **shape)
+    for name, g, w in zip(("counts", "pos0", "pos1"), got, want):
+        np.testing.assert_array_equal(g, w.cpu().numpy().astype(np.int32),
+                                      err_msg=name)
+    assert ctx.stalls == 1
+
+
 def _tiny_data(tmp_path, rule, seed=7, n_reads=300):
     """A 9 kbp genome and mixed-length converted reads, some with Ns, every
     fourth read with a deletion of 1-3 bases."""

@@ -208,14 +208,18 @@ VERBATIM = ["config.py", "bits.py", "index/reference.py",
             "index/seedindex.py", "index/sharded.py", "index/rrbs.py",
             "reads/io.py", "reads/encode.py", "align/rng.py",
             "align/candidates.py", "align/replay.py", "align/sam.py",
-            "pairs/pairing.py"]
+            "pairs/pairing.py", "toolkit/bamio.py", "toolkit/bamutil.py",
+            "toolkit/cram.py", "toolkit/shiftd.py",
+            "toolkit/mergebam.py", "toolkit/multitest.py", "toolkit/fdr.py",
+            "toolkit/regmod.py", "toolkit/cli.py"]
 # (copy, original, members of the copy that differ or are new)
 EDITED = [
     ("__init__.py", "__init__.py", set()),
     ("native/__init__.py", "native/__init__.py",
      {"get_lib", "_build", "_load", "library_path", "BUILD_ROOT", "_FLAGS",
       "_build_lock"}),
-    ("toolkit/bamio.py", "toolkit/bamio.py", set()),
+    ("toolkit/bamindex.py", "toolkit/bamindex.py", {"fetch_sam_lines"}),
+    ("toolkit/avgmod.py", "toolkit/avgmod.py", {"_member_lut"}),
     ("align/aligner.py", "align/pipeline.py", set()),
     ("pairs/aligner.py", "pairs/pipeline.py", set()),
     ("parallel/routed.py", "parallel/multihost.py",
