@@ -15,7 +15,14 @@ nothing of basal_tpu.  Changes: imports; removed the JAX members
 (``_cpu_backend``, ``host_eval_policy``, ``DeviceContext``, and
 ``SingleEndAligner.dev`` / ``_fused_host`` / ``_host_eval_policy``, which
 ``TorchSingleEndAligner`` defines) and ``run_single_end`` /
-``_run_single_end``, which ``align.pipeline`` defines.
+``_run_single_end``, which ``align.pipeline`` defines.  The port's spans
+(``basal_tpu_torch.trace``) and the counters ``emit_native_reads`` and
+``emit_python_reads`` (printed by ``stage_report``) changed these members:
+``_maybe_start_thp``, ``SingleEndAligner.__init__``, ``submit_batch``
+(through the new ``_submit_batch``), ``_dispatch_unique``,
+``finish_batch``, ``_finish_with``, ``_emit_native``,
+``ThreadedRunner.submit`` (through the new ``ThreadedRunner._align``) and
+``stage_report``.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from typing import List, Optional
 
 import numpy as np
 
+from .. import trace
 from ..config import AlignParams
 from ..index.reference import PackedReference
 from ..reads.encode import encode_batch
@@ -59,8 +67,11 @@ def _maybe_start_thp(aligner) -> None:
     import threading
 
     from ..native import collapse_index_tables
-    threading.Thread(target=collapse_index_tables,
-                     args=(aligner.index, aligner.ref), daemon=True).start()
+
+    def collapse():
+        with trace.span("index.thp_collapse"):
+            collapse_index_tables(aligner.index, aligner.ref)
+    threading.Thread(target=collapse, daemon=True).start()
 
 
 def _inline_tail_enabled() -> bool:
@@ -114,6 +125,8 @@ class SingleEndAligner:
             "waves_device": 0, "waves_host": 0, "waves_visit": 0,
             "eager_batches": 0, "ladder_batches": 0, "ladder_waves": 0,
             "fused_batches": 0,  # single-pass build+eval+scan (C++)
+            # reads formatted by the native formatter / the Python emitter
+            "emit_native_reads": 0, "emit_python_reads": 0,
         }
         from ..native import NativeBatch, native_available
         if use_native is None:
@@ -182,6 +195,10 @@ class SingleEndAligner:
         already landed (the caller posted a LATER batch's query, and the
         single-slot post blocks until the prior reply is in), so the wait
         is skipped — see the read-ahead loop in _run_single_end."""
+        with trace.span("aligner.submit", of=reads):
+            return self._submit_batch(reads, enc, routed_ready)
+
+    def _submit_batch(self, reads, enc, routed_ready):
         if enc is None:
             from ..reads.io import RawBatch as _RB
             chk = self._fused_chunk()
@@ -191,7 +208,8 @@ class SingleEndAligner:
                     and len(reads) >= 2 * chk
                     and self._fused_host()):
                 return self._submit_fused_chunked(reads)
-            enc = encode_batch(self.p, reads)
+            with trace.span("aligner.encode"):
+                enc = encode_batch(self.p, reads)
             ens = getattr(self.index, "ensure_batch", None)
             if ens is not None:  # shard-resident index: one routed round
                 ens(enc, extra=self._stale_seeds())
@@ -217,15 +235,17 @@ class SingleEndAligner:
             self.stage["waves_visit"] += 1
             self.stage["fused_batches"] += 1
             return ("fused", enc, res)
-        groups, goff, total = self.native.build_groups(enc, ridx)
-        ng = groups.shape[0]
-        off = np.full(ng, -1, dtype=np.int64)
-        if ng == 0:
-            return ("native", enc, groups, goff, off, None, None, None, 99)
-        eff = 99 if total <= self.EAGER_MAX_CANDS else 1
-        sel = (np.arange(ng) if eff >= 99
-               else np.flatnonzero(groups[:, 2] < eff))
-        n1c = int(groups[sel, 6].sum())
+        with trace.span("aligner.groups"):  # and wave 1's groups
+            groups, goff, total = self.native.build_groups(enc, ridx)
+            ng = groups.shape[0]
+            off = np.full(ng, -1, dtype=np.int64)
+            if ng == 0:
+                return ("native", enc, groups, goff, off, None, None, None,
+                        99)
+            eff = 99 if total <= self.EAGER_MAX_CANDS else 1
+            sel = (np.arange(ng) if eff >= 99
+                   else np.flatnonzero(groups[:, 2] < eff))
+            n1c = int(groups[sel, 6].sum())
         if total and self.p.gap > 0 and _inline_tail_enabled():
             # gapped: no bulk wave at all — one replay evaluates every
             # candidate at visit time (gap_align_ev's lazy
@@ -260,7 +280,8 @@ class SingleEndAligner:
             self.stage["waves_host"] += 1
             return ("native", enc, groups, goff, off, (loc, None, None),
                     ("host", cnt, None, None), None, eff)
-        loc, plane, row = self.native.fill_groups(enc, groups, sel, off)
+        with trace.span("aligner.fill"):
+            loc, plane, row = self.native.fill_groups(enc, groups, sel, off)
         self.total_candidates += loc.size
         handle, uinv = self._dispatch_unique(enc, loc, plane, row)
         return ("native", enc, groups, goff, off, (loc, plane, row),
@@ -378,15 +399,19 @@ class SingleEndAligner:
 
         if loc.size < 4 * len(enc.reads):
             return dispatch(loc, plane, row), None
-        key = ((row.astype(np.int64) << 33)
-               | (loc.astype(np.int64) << 1) | plane.astype(np.int64))
-        uniq, inv = np.unique(key, return_inverse=True)
-        if len(uniq) < 0.75 * len(key):
+        with trace.span("aligner.dedup"):
+            key = ((row.astype(np.int64) << 33)
+                   | (loc.astype(np.int64) << 1) | plane.astype(np.int64))
+            uniq, inv = np.unique(key, return_inverse=True)
+            dedup = len(uniq) < 0.75 * len(key)
+            if dedup:
+                order = np.argsort(inv, kind="stable")
+                starts = np.searchsorted(inv[order], np.arange(len(uniq)))
+                first = order[starts]
+                loc, plane, row = loc[first], plane[first], row[first]
+        if dedup:
             self.stage["dedup_saved"] += len(key) - len(uniq)
-            order = np.argsort(inv, kind="stable")
-            starts = np.searchsorted(inv[order], np.arange(len(uniq)))
-            first = order[starts]
-            return dispatch(loc[first], plane[first], row[first]), inv
+            return dispatch(loc, plane, row), inv
         return dispatch(loc, plane, row), None
 
     def _fetch_expand(self, handle, uinv):
@@ -422,14 +447,15 @@ class SingleEndAligner:
         return self._finish_with(state, fetched)
 
     def finish_batch(self, state) -> bytes:
-        if state[0] == "py":
-            return self._align_batch_python(state[1])
-        if state[0] == "fused":
-            return self._emit_native(state[1], [(None, state[2])])
-        if state[0] == "fused_chunks":
-            return b"".join(self._emit_native(e, [(None, r)])
-                            for e, r in state[1])
-        return self._finish_with(state, self.prefetch_state(state))
+        with trace.span("aligner.finish", of=state[1]):
+            if state[0] == "py":
+                return self._align_batch_python(state[1])
+            if state[0] == "fused":
+                return self._emit_native(state[1], [(None, state[2])])
+            if state[0] == "fused_chunks":
+                return b"".join(self._emit_native(e, [(None, r)])
+                                for e, r in state[1])
+            return self._finish_with(state, self.prefetch_state(state))
 
     def _finish_with(self, state, fetched) -> str:
         (_, enc, groups, goff, off, arrs, handle, uinv, eff) = state
@@ -438,10 +464,11 @@ class SingleEndAligner:
                               and handle[0] == "inline"):
             z = np.zeros(0, np.int32)
             t0 = time.time()
-            res = self.native.replay_se(enc, groups, goff, z, None, z,
-                                        None, None, counts_off=off,
-                                        inline_eval=handle is not None,
-                                        n_threads=self.nt_hint)
+            with trace.span("aligner.replay"):
+                res = self.native.replay_se(enc, groups, goff, z, None, z,
+                                            None, None, counts_off=off,
+                                            inline_eval=handle is not None,
+                                            n_threads=self.nt_hint)
             if handle is not None and handle[1] >= 16384:
                 # conservative host-cost sample (includes the scan itself)
                 self._host_t += time.time() - t0
@@ -452,9 +479,11 @@ class SingleEndAligner:
                               else self._fetch_expand(handle, uinv))
         if eff >= 99:
             self.stage["eager_batches"] += 1
-            res = self.native.replay_se(enc, groups, goff, loc, plane,
-                                        counts, pos0, pos1, counts_off=off,
-                                        n_threads=self.nt_hint)
+            with trace.span("aligner.replay"):
+                res = self.native.replay_se(enc, groups, goff, loc, plane,
+                                            counts, pos0, pos1,
+                                            counts_off=off,
+                                            n_threads=self.nt_hint)
             return self._emit_native(enc, [(None, res)])
 
         # strata ladder.  Candidate/count arrays grow each wave; appending
@@ -464,101 +493,105 @@ class SingleEndAligner:
         # only dereferences offsets < cur, so passing the full-capacity
         # buffers is safe, and int32 buffers make replay_se's
         # ascontiguousarray a no-op.
-        read_of_group = groups[:, 0]
-        self.stage["ladder_batches"] += 1
-        waves = []
-        done = np.zeros(len(enc.reads), dtype=bool)
-        lim = eff
-        cur = loc.size
-        cap = max(2 * cur, cur + (1 << 20))
-        loc_buf = np.empty(cap, np.int32)
-        loc_buf[:cur] = loc
-        cnt_buf = np.empty(cap, np.int32)
-        cnt_buf[:cur] = counts
-        pos0_buf = pos1_buf = None
-        if pos0 is not None:
-            pos0_buf = np.empty((cap,) + pos0.shape[1:], np.int32)
-            pos0_buf[:cur] = pos0
-            pos1_buf = np.empty((cap,) + pos1.shape[1:], np.int32)
-            pos1_buf[:cur] = pos1
+        with trace.span("aligner.ladder"):
+            read_of_group = groups[:, 0]
+            self.stage["ladder_batches"] += 1
+            waves = []
+            done = np.zeros(len(enc.reads), dtype=bool)
+            lim = eff
+            cur = loc.size
+            cap = max(2 * cur, cur + (1 << 20))
+            loc_buf = np.empty(cap, np.int32)
+            loc_buf[:cur] = loc
+            cnt_buf = np.empty(cap, np.int32)
+            cnt_buf[:cur] = counts
+            pos0_buf = pos1_buf = None
+            if pos0 is not None:
+                pos0_buf = np.empty((cap,) + pos0.shape[1:], np.int32)
+                pos0_buf[:cur] = pos0
+                pos1_buf = np.empty((cap,) + pos1.shape[1:], np.int32)
+                pos1_buf[:cur] = pos1
 
-        def _grow(need):
-            nonlocal cap, loc_buf, cnt_buf, pos0_buf, pos1_buf
-            if need <= cap:
-                return
-            cap = max(need, 2 * cap)
+            def _grow(need):
+                nonlocal cap, loc_buf, cnt_buf, pos0_buf, pos1_buf
+                if need <= cap:
+                    return
+                cap = max(need, 2 * cap)
 
-            def g(buf):
-                nb = np.empty((cap,) + buf.shape[1:], buf.dtype)
-                nb[:cur] = buf[:cur]
-                return nb
-            loc_buf, cnt_buf = g(loc_buf), g(cnt_buf)
-            if pos0_buf is not None:
-                pos0_buf, pos1_buf = g(pos0_buf), g(pos1_buf)
+                def g(buf):
+                    nb = np.empty((cap,) + buf.shape[1:], buf.dtype)
+                    nb[:cur] = buf[:cur]
+                    return nb
+                loc_buf, cnt_buf = g(loc_buf), g(cnt_buf)
+                if pos0_buf is not None:
+                    pos0_buf, pos1_buf = g(pos0_buf), g(pos1_buf)
 
-        while True:
-            self.stage["ladder_waves"] += 1
-            filt = np.ascontiguousarray(enc.filtered | done, np.uint8)
-            res = self.native.replay_se(enc, groups, goff, loc_buf, plane,
-                                        cnt_buf, pos0_buf, pos1_buf,
-                                        mode_limit=lim,
-                                        filtered_override=filt,
-                                        counts_off=off,
-                                        n_threads=self.nt_hint)
-            incomplete = res[0] == -2
-            newly = (~incomplete) & (~done)
-            waves.append((newly, res))
-            done |= newly
-            if not incomplete.any():
-                break
-            sel = np.flatnonzero((groups[:, 2] == lim)
-                                 & incomplete[read_of_group])
-            n2 = int(groups[sel, 6].sum())  # column 6 = group size
-            n_inc = int(incomplete.sum())
-            if (_inline_tail_enabled()
-                    and (n2 < 1_000_000 or n2 > 2_000 * n_inc)):
-                # tail wave is either tiny (not worth a bulk round trip) or
-                # mega-groups serving few reads (bulk evaluation would be
-                # mostly wasted past the scan's abort points): finish with
-                # ONE replay that evaluates the remaining candidates at
-                # visit time inside the scan
-                self.stage["cand_visit"] += n2
-                self.stage["waves_visit"] += 1
+            while True:
+                self.stage["ladder_waves"] += 1
                 filt = np.ascontiguousarray(enc.filtered | done, np.uint8)
-                res = self.native.replay_se(
-                    enc, groups, goff, loc_buf, plane, cnt_buf,
-                    pos0_buf, pos1_buf, mode_limit=99,
-                    filtered_override=filt, counts_off=off,
-                    inline_eval=True)
-                waves.append((~done, res))
-                return self._emit_native(enc, waves)
-            self.total_candidates += n2
-            _grow(cur + n2)
-            if n2 and self.p.gap == 0 and self._host_eval_policy(n2):
-                # fused C++ materialize + evaluate straight into the tail
-                self.stage["cand_host"] += n2
-                self.stage["waves_host"] += 1
-                t0 = time.time()
-                self.native.fill_eval_groups(
-                    enc, self.ref, groups, sel, off, cur,
-                    loc_buf[cur:cur + n2], cnt_buf[cur:cur + n2],
-                    n_threads=self.nt_hint)
-                if n2 >= 16384:
-                    self._host_t += time.time() - t0
-                    self._host_n += n2
-                cur += n2
-            elif n2:
-                loc2, plane2, row2 = self.native.fill_groups(
-                    enc, groups, sel, off, base=cur)
-                h2, uinv2 = self._dispatch_unique(enc, loc2, plane2, row2)
-                c2, p02, p12 = self._fetch_expand(h2, uinv2)
-                loc_buf[cur:cur + n2] = loc2
-                cnt_buf[cur:cur + n2] = c2
-                if pos0_buf is not None and p02 is not None:
-                    pos0_buf[cur:cur + n2] = p02
-                    pos1_buf[cur:cur + n2] = p12
-                cur += n2
-            lim += 1
+                with trace.span("aligner.replay"):
+                    res = self.native.replay_se(enc, groups, goff, loc_buf,
+                                                plane, cnt_buf, pos0_buf,
+                                                pos1_buf, mode_limit=lim,
+                                                filtered_override=filt,
+                                                counts_off=off,
+                                                n_threads=self.nt_hint)
+                incomplete = res[0] == -2
+                newly = (~incomplete) & (~done)
+                waves.append((newly, res))
+                done |= newly
+                if not incomplete.any():
+                    break
+                sel = np.flatnonzero((groups[:, 2] == lim)
+                                     & incomplete[read_of_group])
+                n2 = int(groups[sel, 6].sum())  # column 6 = group size
+                n_inc = int(incomplete.sum())
+                if (_inline_tail_enabled()
+                        and (n2 < 1_000_000 or n2 > 2_000 * n_inc)):
+                    # tail wave is either tiny (not worth a bulk round trip) or
+                    # mega-groups serving few reads (bulk evaluation would be
+                    # mostly wasted past the scan's abort points): finish with
+                    # ONE replay that evaluates the remaining candidates at
+                    # visit time inside the scan
+                    self.stage["cand_visit"] += n2
+                    self.stage["waves_visit"] += 1
+                    filt = np.ascontiguousarray(enc.filtered | done, np.uint8)
+                    with trace.span("aligner.replay"):
+                        res = self.native.replay_se(
+                            enc, groups, goff, loc_buf, plane, cnt_buf,
+                            pos0_buf, pos1_buf, mode_limit=99,
+                            filtered_override=filt, counts_off=off,
+                            inline_eval=True)
+                    waves.append((~done, res))
+                    break
+                self.total_candidates += n2
+                _grow(cur + n2)
+                if n2 and self.p.gap == 0 and self._host_eval_policy(n2):
+                    # fused C++ materialize + evaluate straight into the tail
+                    self.stage["cand_host"] += n2
+                    self.stage["waves_host"] += 1
+                    t0 = time.time()
+                    self.native.fill_eval_groups(
+                        enc, self.ref, groups, sel, off, cur,
+                        loc_buf[cur:cur + n2], cnt_buf[cur:cur + n2],
+                        n_threads=self.nt_hint)
+                    if n2 >= 16384:
+                        self._host_t += time.time() - t0
+                        self._host_n += n2
+                    cur += n2
+                elif n2:
+                    with trace.span("aligner.fill"):
+                        loc2, plane2, row2 = self.native.fill_groups(
+                            enc, groups, sel, off, base=cur)
+                    h2, uinv2 = self._dispatch_unique(enc, loc2, plane2, row2)
+                    c2, p02, p12 = self._fetch_expand(h2, uinv2)
+                    loc_buf[cur:cur + n2] = loc2
+                    cnt_buf[cur:cur + n2] = c2
+                    if pos0_buf is not None and p02 is not None:
+                        pos0_buf[cur:cur + n2] = p02
+                        pos1_buf[cur:cur + n2] = p12
+                    cur += n2
+                lim += 1
         return self._emit_native(enc, waves)
 
     def align_batch(self, reads) -> bytes:
@@ -633,19 +666,23 @@ class SingleEndAligner:
 
         if self.formatter is not None and len(waves) == 1:
             # counters accumulate inside the native formatter; stats() merges
-            return self.formatter.format(enc, waves[0][1],
-                                         n_threads=self.nt_hint)
-        out: List[str] = []
-        for i, read in enumerate(enc.reads):
-            res = None
-            for mask, wres in waves:
-                if mask is None or mask[i]:
-                    res = read_result(wres, i)
-                    break
-            if res is None:  # only possible if every wave skipped it
-                res = read_result(waves[-1][1], i)
-            self.emitter.emit_read(read, res, int(enc.map_len[i]), out)
-        return "".join(out).encode("latin1")
+            self.stage["emit_native_reads"] += len(enc.reads)
+            with trace.span("sam.native"):
+                return self.formatter.format(enc, waves[0][1],
+                                             n_threads=self.nt_hint)
+        self.stage["emit_python_reads"] += len(enc.reads)
+        with trace.span("sam.python"):
+            out: List[str] = []
+            for i, read in enumerate(enc.reads):
+                res = None
+                for mask, wres in waves:
+                    if mask is None or mask[i]:
+                        res = read_result(wres, i)
+                        break
+                if res is None:  # only possible if every wave skipped it
+                    res = read_result(waves[-1][1], i)
+                self.emitter.emit_read(read, res, int(enc.map_len[i]), out)
+            return "".join(out).encode("latin1")
 
 class ThreadedRunner:
     """-p worker pool: the TPU-native replacement for the reference's pthread
@@ -673,7 +710,17 @@ class ThreadedRunner:
     def submit(self, reads):
         slot = self.i % self.n
         self.i += 1
-        return self.pools[slot].submit(self.aligners[slot].align_batch, reads)
+        return self.pools[slot].submit(self._align, self.aligners[slot],
+                                       reads, trace.now())
+
+    @staticmethod
+    def _align(aligner, reads, t_submit) -> bytes:
+        """align_batch on the slot's thread; the time the batch waited
+        there since ``submit`` is its ``runner.queue`` span."""
+        if t_submit is not None:
+            trace.record("runner.queue", t_submit, time.perf_counter(),
+                         of=reads)
+        return aligner.align_batch(reads)
 
     def counters(self):
         totals = [a.stats() for a in self.aligners]
@@ -702,4 +749,6 @@ def stage_report(aligners) -> str:
             f"| batches: eager {s['eager_batches']} "
             f"ladder {s['ladder_batches']} "
             f"(ladder waves {s['ladder_waves']}) "
-            f"fused {s['fused_batches']}")
+            f"fused {s['fused_batches']} "
+            f"| SAM reads: native {s['emit_native_reads']} "
+            f"python {s['emit_python_reads']}")

@@ -29,7 +29,7 @@ from typing import List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from .. import malloc_window
+from .. import malloc_window, trace
 from ..config import AlignParams
 from ..index.reference import PackedReference, load_reference
 from ..index.seedindex import build_index
@@ -77,9 +77,10 @@ def blob_to_device(blob: np.ndarray, device):
     host = torch.from_numpy(blob)
     if device.type == "cpu":
         return host, None
-    staging = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
-    staging.copy_(host)
-    return staging.to(device, non_blocking=True), staging
+    with trace.span("devctx.pinned"):
+        staging = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
+        staging.copy_(host)
+        return staging.to(device, non_blocking=True), staging
 
 
 def _hasn(enc: EncodedBatch) -> np.ndarray:
@@ -176,7 +177,7 @@ def download(C: int, U: int, E: int, out: tuple, t0: float,
     dev = out[0].device
     if dev.type == "cpu":
         return _Wave(C, U, E, out, None, t0, ())
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), trace.span("devctx.pinned"):
         host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
                      for t in out)
         for h, t in zip(host, out):
@@ -236,16 +237,20 @@ class TorchDeviceContext:
 
     def wave_blobs(self, enc: EncodedBatch, loc, plane, row):
         """(blob, C, U, E) of each wave the candidates make: CHUNK-sized,
-        then split at row boundaries by split_waves."""
+        then split at row boundaries by split_waves.  The host work is in
+        ``devctx.blob`` spans, closed before each yield."""
         for i in range(0, loc.shape[0], self.CHUNK):
-            l_, p_, r_ = (a[i:i + self.CHUNK] for a in (loc, plane, row))
-            if r_.size > 1 and (np.diff(r_) < 0).any():
-                raise ValueError("candidate rows must be non-decreasing")
-            for a, b in split_waves(enc, r_):
-                used, first = np.unique(r_[a:b], return_index=True)
-                roff = np.append(first, b - a).astype(np.int32)
-                blob, E = build_blob(enc, self.mode, l_[a:b], p_[a:b], used,
-                                     roff)
+            with trace.span("devctx.blob"):
+                l_, p_, r_ = (a[i:i + self.CHUNK] for a in (loc, plane, row))
+                if r_.size > 1 and (np.diff(r_) < 0).any():
+                    raise ValueError("candidate rows must be non-decreasing")
+                ranges = split_waves(enc, r_)
+            for a, b in ranges:
+                with trace.span("devctx.blob"):
+                    used, first = np.unique(r_[a:b], return_index=True)
+                    roff = np.append(first, b - a).astype(np.int32)
+                    blob, E = build_blob(enc, self.mode, l_[a:b], p_[a:b],
+                                         used, roff)
                 yield blob, b - a, len(used), E
 
     def extend_async(self, enc: EncodedBatch, loc, plane, row) -> List[_Wave]:
@@ -261,10 +266,13 @@ class TorchDeviceContext:
             shape = dict(mode=self.mode, W=enc.W, nw=self.nw, C=C, U=U, E=E)
             with torch.cuda.device(self.device) if cuda else nullcontext():
                 dblob, staging = blob_to_device(blob, self.device)
-                if gap:
-                    out = extend_gap_blob(self.ref32, dblob, gap=gap, **shape)
-                else:
-                    out = (extend_counts_blob(self.ref32, dblob, **shape),)
+                with trace.span("devctx.launch"):
+                    if gap:
+                        out = extend_gap_blob(self.ref32, dblob, gap=gap,
+                                              **shape)
+                    else:
+                        out = (extend_counts_blob(self.ref32, dblob,
+                                                  **shape),)
             self.down_bytes += sum(t.numel() * t.element_size() for t in out)
             waves.append(download(C, U, E, out, t0, (staging, dblob)))
         return waves
@@ -320,7 +328,8 @@ class TorchDeviceContext:
         on the host instead (see the class docstring)."""
         outs = []
         for w in waves:
-            self._wait(w)
+            with trace.span("devctx.wait"):
+                self._wait(w)
             outs.append([t.numpy().astype(np.int32) for t in w.out])
             if w.C >= 16384:
                 if self._meas_skip:
@@ -381,9 +390,11 @@ class TorchSingleEndAligner(SingleEndAligner):
     def dev(self) -> TorchDeviceContext:
         """Device context, created on first device dispatch: the sharded
         context when the aligner's device is CUDA and several cards are
-        visible (``parallel.mesh``), else the single context."""
+        visible (``parallel.mesh``), else the single context.  Its creation,
+        the reference's upload included, is a ``devctx.init`` span."""
         if self._dev is None:
-            self._dev = device_context(self.ref, self.p, self.device)
+            with trace.span("devctx.init"):
+                self._dev = device_context(self.ref, self.p, self.device)
         return self._dev
 
     def _fused_host(self) -> bool:
@@ -438,8 +449,9 @@ def run_single_end(params: AlignParams, ref_path: str, reads_path: str,
     ``index_factory(ref, params)`` replaces the dense seed index, as a
     multi-process run does with ``parallel.multihost.TorchRoutedSeedIndex``.
     ``BASAL_TPU_PROFILE=<dir>`` records the run under torch.profiler (the
-    card's kernels and copies too on CUDA) and writes a Chrome trace,
-    ``<dir>/basal_tpu_torch_<pid>.json``."""
+    card's kernels and copies too on CUDA) with the port's own spans
+    (``basal_tpu_torch.trace``) on the same timeline, and writes a Chrome
+    trace, ``<dir>/basal_tpu_torch_<pid>.json``."""
     device = resolve_device(device)
     prof_dir = os.environ.get("BASAL_TPU_PROFILE")
     with profile_run(prof_dir, device), malloc_window():
@@ -450,23 +462,44 @@ def run_single_end(params: AlignParams, ref_path: str, reads_path: str,
 
 @contextmanager
 def profile_run(prof_dir: Optional[str], device: torch.device):
-    """torch.profiler around the block when ``prof_dir`` is set; the
-    Chrome trace is written when the block ends, also on an error."""
+    """torch.profiler and the span recorder around the block when
+    ``prof_dir`` is set; the Chrome trace, the spans moved onto the
+    profiler's clock through one ``trace.MARK`` event, is written when the
+    block ends, also on an error.  A recorder already on (a caller's) is
+    left on and keeps its records."""
     if not prof_dir:
         yield
         return
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
     acts = [ProfilerActivity.CPU] + (
         [ProfilerActivity.CUDA] if device.type == "cuda" else [])
     os.makedirs(prof_dir, exist_ok=True)
+    own = not trace.enabled()
+    if own:
+        trace.enable()
     prof = profile(activities=acts)
     prof.start()
+    with record_function(trace.MARK):
+        t_mark = time.perf_counter()
+    ok = False
     try:
         yield
+        ok = True
     finally:
         prof.stop()
-        prof.export_chrome_trace(
-            os.path.join(prof_dir, f"basal_tpu_torch_{os.getpid()}.json"))
+        spans = trace.snapshot()
+        if own:
+            trace.disable()
+        path = os.path.join(prof_dir, f"basal_tpu_torch_{os.getpid()}.json")
+        prof.export_chrome_trace(path)
+        try:
+            trace.add_to_chrome_trace(path, spans, t_mark)
+        except Exception as e:
+            if ok:
+                raise
+            # the block's own error is the one to see
+            print(f"basal_tpu_torch: the program's spans were not added to "
+                  f"{path}: {e!r}", file=sys.stderr)
 
 
 def _summary(log, reader, params, t0, counters, aligners):
@@ -483,18 +516,20 @@ def _summary(log, reader, params, t0, counters, aligners):
 def _run_single_end(params, ref_path, reads_path, out_fh, command_line, log,
                     timings, device, index_factory=None):
     t0 = time.time()
-    ref = load_reference(ref_path, params)
+    with trace.span("index.reference_load"):
+        ref = load_reference(ref_path, params)
     log(f"{ref.total_num} reference seqs loaded, total size {ref.sum_length} bp. "
         f"{time.time()-t0:.0f} secs passed")
     if timings is not None:
         timings["t_ref"] = time.time() - t0
-    if index_factory is not None:
-        index = index_factory(ref, params)
-    elif params.rrbs_flag:
-        from ..index.rrbs import build_rrbs_index
-        index = build_rrbs_index(ref_path, ref, params)
-    else:
-        index = build_index(ref, params)
+    with trace.span("index.build"):
+        if index_factory is not None:
+            index = index_factory(ref, params)
+        elif params.rrbs_flag:
+            from ..index.rrbs import build_rrbs_index
+            index = build_rrbs_index(ref_path, ref, params)
+        else:
+            index = build_index(ref, params)
     log(f"create seed table. {time.time()-t0:.0f} secs passed")
     if timings is not None:
         timings["t_index"] = time.time() - t0 - timings["t_ref"]

@@ -21,6 +21,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+from .. import trace
+
 _PKG = Path(__file__).resolve().parents[1]
 SRC_DIR = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "basal_tpu_torch"
@@ -108,10 +110,11 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        so = library_path()
-        if not so.exists():
-            _build(so)
-        lib = ctypes.CDLL(str(so))
+        with trace.span("kernels.load"):
+            so = library_path()
+            if not so.exists():
+                _build(so)
+            lib = ctypes.CDLL(str(so))
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.bt_count_blob.argtypes = [p, i, p, p, i, i, i, i, i, p]
         lib.bt_count_blob.restype = i

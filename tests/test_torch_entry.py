@@ -68,7 +68,9 @@ def test_entry_module_runs_without_jax():
 def test_profile_hook_writes_chrome_trace(tmp_path, rng, monkeypatch):
     """BASAL_TPU_PROFILE=<dir>: torch.profiler around run_single_end; the
     trace holds the run's device waves (the plain count core on the
-    CPU), and the SAM is the unprofiled run's."""
+    CPU) and the program's spans on the same timeline, and the SAM is the
+    unprofiled run's."""
+    from basal_tpu_torch import trace
     from basal_tpu_torch.align.pipeline import run_single_end
     from basal_tpu_torch.config import AlignParams
     g = random_genome(rng, 6000)
@@ -91,3 +93,65 @@ def test_profile_hook_writes_chrome_trace(tmp_path, rng, monkeypatch):
     events = json.loads(traces[0].read_text())["traceEvents"]
     names = {e.get("name", "") for e in events}
     assert len(events) > 100 and any(n.startswith("aten::") for n in names)
+    # the program's spans, on the profiler's timeline: the aten:: events
+    # of the plain count core lie inside an aligner.submit or
+    # aligner.finish span of their thread
+    ours = [e for e in events if e.get("cat") == "basal_tpu_torch"]
+    got = {e["name"] for e in ours}
+    assert {"aligner.submit", "aligner.finish", "devctx.launch",
+            "index.build"} <= got
+    parents = [e for e in ours
+               if e["name"] in ("aligner.submit", "aligner.finish")]
+    launches = [e for e in ours if e["name"] == "devctx.launch"]
+
+    def inside(e, spans):
+        return any(p["tid"] == e["tid"] and p["ts"] <= e["ts"]
+                   and e["ts"] + e["dur"] <= p["ts"] + p["dur"]
+                   for p in spans)
+    core = [e for e in events if e.get("name", "").startswith("aten::")
+            and e.get("ph") == "X" and inside(e, launches)]
+    assert core and all(inside(e, parents) for e in core)
+    assert not trace.enabled()
+
+
+def test_profile_hook_survives_a_lost_mark(tmp_path, rng, monkeypatch):
+    """A profiler that drops the MARK event costs the run nothing: it
+    returns, its SAM is whole, the Chrome trace is written and the spans go
+    to a file of their own, with a warning.  An error of the block itself
+    is the one raised, also when adding the spans fails too."""
+    import contextlib
+
+    import torch.profiler
+    from basal_tpu_torch import trace
+    from basal_tpu_torch.align import pipeline
+    from basal_tpu_torch.config import AlignParams
+    g = random_genome(rng, 4000)
+    make_ref(tmp_path / "ref.fa", [("chrT", g)])
+    make_fastq(tmp_path / "reads.fq",
+               convert_reads(rng, g, 30, 90, "A:G", sub_rate=0.01))
+    p = AlignParams(conversion="A:G", randseed=3, out_unmap=True)
+    monkeypatch.setattr(torch.profiler, "record_function",
+                        lambda name: contextlib.nullcontext())
+    monkeypatch.setenv("BASAL_TPU_PROFILE", str(tmp_path / "prof"))
+    buf = io.BytesIO()
+    with pytest.warns(UserWarning, match="no basal_tpu_torch.trace_open"):
+        al = pipeline.run_single_end(p, str(tmp_path / "ref.fa"),
+                                     str(tmp_path / "reads.fq"), out_fh=buf,
+                                     device="cpu")
+    assert al is not None and buf.getvalue().count(b"\n") > 30
+    (path,) = (tmp_path / "prof").glob("basal_tpu_torch_*[0-9].json")
+    assert json.loads(path.read_text())["traceEvents"]
+    spans = json.loads(path.with_suffix(".spans.json").read_text())
+    assert "aligner.submit" in {e["name"] for e in spans["traceEvents"]}
+    assert not trace.enabled()
+
+    def broken(*a):
+        raise OSError("no room")
+    monkeypatch.setattr(trace, "add_to_chrome_trace", broken)
+    with pytest.raises(ValueError, match="the block's"):
+        with pipeline.profile_run(str(tmp_path / "prof2"), CPU):
+            raise ValueError("the block's")
+    with pytest.raises(OSError, match="no room"):
+        with pipeline.profile_run(str(tmp_path / "prof3"), CPU):
+            pass
+    assert not trace.enabled()

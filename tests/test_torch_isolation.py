@@ -220,7 +220,12 @@ EDITED = [
       "_build_lock"}),
     ("toolkit/bamindex.py", "toolkit/bamindex.py", {"fetch_sam_lines"}),
     ("toolkit/avgmod.py", "toolkit/avgmod.py", {"_member_lut"}),
-    ("align/aligner.py", "align/pipeline.py", set()),
+    ("align/aligner.py", "align/pipeline.py",
+     {"_maybe_start_thp", "stage_report", "SingleEndAligner.__init__",
+      "SingleEndAligner.submit_batch", "SingleEndAligner._submit_batch",
+      "SingleEndAligner._dispatch_unique", "SingleEndAligner.finish_batch",
+      "SingleEndAligner._finish_with", "SingleEndAligner._emit_native",
+      "ThreadedRunner.submit", "ThreadedRunner._align"}),
     ("pairs/aligner.py", "pairs/pipeline.py", set()),
     ("parallel/routed.py", "parallel/multihost.py",
      {"RoutedSeedIndex._fill"}),
