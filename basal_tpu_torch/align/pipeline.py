@@ -32,7 +32,7 @@ import torch
 from .. import malloc_window, trace
 from ..config import AlignParams
 from ..index.reference import PackedReference, load_reference
-from ..index.seedindex import build_index
+from ..index.device_build import build_index_on
 from ..ops.extend import K_POS
 from ..ops.extend_cuda import extend_counts_blob, extend_gap_blob
 from ..reads.encode import EncodedBatch
@@ -522,6 +522,7 @@ def _run_single_end(params, ref_path, reads_path, out_fh, command_line, log,
         f"{time.time()-t0:.0f} secs passed")
     if timings is not None:
         timings["t_ref"] = time.time() - t0
+    built = ""
     with trace.span("index.build"):
         if index_factory is not None:
             index = index_factory(ref, params)
@@ -529,8 +530,9 @@ def _run_single_end(params, ref_path, reads_path, out_fh, command_line, log,
             from ..index.rrbs import build_rrbs_index
             index = build_rrbs_index(ref_path, ref, params)
         else:
-            index = build_index(ref, params)
-    log(f"create seed table. {time.time()-t0:.0f} secs passed")
+            index, place = build_index_on(ref, params, device)
+            built = f" on {place}"
+    log(f"create seed table{built}. {time.time()-t0:.0f} secs passed")
     if timings is not None:
         timings["t_index"] = time.time() - t0 - timings["t_ref"]
         timings["t_align_start"] = time.time()

@@ -120,5 +120,14 @@ def load() -> ctypes.CDLL:
         lib.bt_count_blob.restype = i
         lib.bt_gap_blob.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, p]
         lib.bt_gap_blob.restype = i
+        i64 = ctypes.c_int64
+        lib.bt_index_seeds.argtypes = [p, p, p, p, i, i, i64, i64, i, i, p,
+                                       p, p, p, i64, p]
+        lib.bt_index_seeds.restype = i
+        lib.bt_index_temp_bytes.argtypes = [i64, i64, i]
+        lib.bt_index_temp_bytes.restype = i64
+        lib.bt_index_sort.argtypes = [p, p, p, p, i64, i, p, p, i64, p, i64,
+                                      p]
+        lib.bt_index_sort.restype = i
         _lib = lib
         return lib

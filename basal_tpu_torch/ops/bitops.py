@@ -35,6 +35,19 @@ def xt32(tt: torch.Tensor) -> torch.Tensor:
     return (tt - ((tt << 1) & tt & A32)) & M32
 
 
+def xt16_base3(tt: torch.Tensor) -> torch.Tensor:
+    """Collapse the 16 lanes of a word and read them as a base-3 integer,
+    first lane most significant (``bits.xt16_base3``; no step leaves
+    [0, 2**32))."""
+    tt = xt32(tt)
+    tt = tt - ((tt >> 2) & 0x33333333)
+    ss = (tt & 0xF0F0F0F0) >> 1
+    tt = tt - (ss - (ss >> 3))
+    ss = (tt & 0xFF00FF00) >> 2
+    tt = (tt & 0x00FF00FF) + ss + (ss >> 2) + (ss >> 6)
+    return (tt & 0xFFFF) + (tt >> 16) * 6561
+
+
 def xc32(tt: torch.Tensor) -> torch.Tensor:
     """Per-lane wildcard mask: 01 where the ref lane is 01, else 11."""
     return (((~tt) << 1) | tt | FIVES) & M32

@@ -31,7 +31,7 @@ from ..align.pipeline import (TorchDeviceContext, device_context,
 from ..align.sam import sam_header
 from ..config import AlignParams
 from ..index.reference import load_reference
-from ..index.seedindex import build_index
+from ..index.device_build import build_index_on
 from ..reads.encode import encode_batch
 from ..reads.io import RawBatch, open_reads
 from .aligner import PairEndAligner, PairThreadedRunner, _pe_stage_report
@@ -214,14 +214,16 @@ def _run_pair_end(params, ref_path, reads_a_path, reads_b_path, out_fh,
     log(f"{ref.total_num} reference seqs loaded, total size {ref.sum_length} bp.")
     if timings is not None:
         timings["t_ref"] = time.time() - t0
+    built = ""
     if index_factory is not None:
         index = index_factory(ref, params)
     elif params.rrbs_flag:
         from ..index.rrbs import build_rrbs_index
         index = build_rrbs_index(ref_path, ref, params)
     else:
-        index = build_index(ref, params)
-    log(f"create seed table. {time.time()-t0:.0f} secs passed")
+        index, place = build_index_on(ref, params, device)
+        built = f" on {place}"
+    log(f"create seed table{built}. {time.time()-t0:.0f} secs passed")
     if timings is not None:
         timings["t_index"] = time.time() - t0 - timings["t_ref"]
         timings["t_align_start"] = time.time()

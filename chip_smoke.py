@@ -11,6 +11,10 @@ Phases (any failure raises and the script exits non-zero):
      times are printed, then ptxas -v's registers, shared memory, stack
      frame and spills of every kernel instantiation; the phase fails if
      any of the six (two kernels, three rule modes) uses local memory;
+  1b. the seed index of a 400 Mbp repeat genome (three chromosomes, runs
+     of N) built on the host (``build_index``) and twice on the card
+     (``index.device_build``); every table must be equal.  Prints the
+     times, the card build's spans and its peak card memory;
   2. kernels vs plain versions on the card: every wave of a real batch
      must equal the plain PyTorch version exactly.  Count kernel: reads of
      64-150 bp, some with Ns, under C:T, A:CGT, C:T -3 and A:G -N.  Gap
@@ -110,6 +114,10 @@ BENCH_C, BENCH_W, BENCH_U, BENCH_GAP = 1 << 20, 7, 8192, 3
 # different candidates alternate, each touching some 64 MB of sectors, so a
 # launch finds little of the last ones' windows in the 50 MB L2
 GENOME_OUT_OF_L2 = 2_000_000_000
+# phase 1b's genome: the benchmark cell's 400 Mbp with bench.py's repeats,
+# over three chromosomes and cut by runs of N
+INDEX_GENOME = 400_000_000
+INDEX_GAPS = 300
 WAVES_OUT_OF_L2 = 4
 NT = b"ACGT"
 # an H100 SXM's published peaks (700 W): device memory, and 32-bit lanes
@@ -180,13 +188,47 @@ def nvidia_smi_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def write_fasta(path, g):
+def write_fasta(path, g, n_chrom=1):
+    """``g`` as ``n_chrom`` sequences of about equal length, chr1 on."""
+    cuts = [len(g) * i // n_chrom for i in range(n_chrom + 1)]
     with open(path, "wb") as f:
-        f.write(b">chr1\n")
-        n = len(g) // 60 * 60
-        f.write(b"\n".join(g[:n].reshape(-1, 60).view("S60").ravel()) + b"\n")
-        if n < len(g):
-            f.write(g[n:].tobytes() + b"\n")
+        for i in range(n_chrom):
+            c = g[cuts[i]:cuts[i + 1]]
+            f.write(b">chr%d\n" % (i + 1))
+            n = len(c) // 60 * 60
+            f.write(b"\n".join(c[:n].reshape(-1, 60).view("S60").ravel())
+                    + b"\n")
+            if n < len(c):
+                f.write(c[n:].tobytes() + b"\n")
+
+
+def repeat_genome(rng, length, gaps=0):
+    """``length`` bases of bench.py's repeat profile: uniform unique
+    segments of 300-1,199 bp, each followed by 1-3 copies of one 300 bp
+    element at 5% divergence (about 45% repeats); then ``gaps`` runs of
+    1-4,999 N at uniform places, which cut the genome into N-masked
+    blocks."""
+    import numpy as np
+    nt = np.frombuffer(NT, np.uint8)
+    element = rng.choice(nt, size=300)
+    n = int(length / (750 + 600) * 1.2) + 16
+    ulen = rng.integers(300, 1200, n)
+    ncopy = rng.integers(1, 4, n)
+    unit = ulen + 300 * ncopy
+    starts = np.cumsum(unit) - unit
+    g = nt[rng.integers(0, 4, int(starts[-1] + unit[-1]), dtype=np.uint8)]
+    cstart = np.repeat(starts + ulen, ncopy) + 300 * (
+        np.arange(int(ncopy.sum())) - np.repeat(np.cumsum(ncopy) - ncopy,
+                                                ncopy))
+    for a in range(0, cstart.size, 1 << 16):
+        idx = cstart[a:a + (1 << 16), None] + np.arange(300)[None, :]
+        keep = rng.random(idx.shape) >= 0.05
+        g[idx] = np.where(keep, element[None, :], g[idx])
+    g = g[:length]
+    for a, k in zip(rng.integers(0, length, gaps),
+                    rng.integers(1, 5000, gaps)):
+        g[a:a + k] = ord("N")
+    return g
 
 
 def write_fastq(path, seqs):
@@ -468,6 +510,62 @@ def gap_kernel_checks(fasta, g, work, device, n_reads=WAVE_READS):
             f"{K_POS} mismatches in the main / a shifted alignment), "
             f"{n_exc} N rows, W={enc.W}")
     return worst
+
+
+def index_build_check(work, device):
+    """Phase 1b: the seed index of a 400 Mbp repeat genome built by the
+    host (``build_index``) and on the card (``index.device_build``, twice:
+    the first as a run pays it, the second warm); every table must be
+    equal.  Returns the times, the card build's spans and its peak card
+    memory."""
+    import numpy as np
+    import torch
+
+    from basal_tpu_torch import trace
+    from basal_tpu_torch.config import AlignParams
+    from basal_tpu_torch.index import device_build as db
+    from basal_tpu_torch.index.reference import load_reference
+    from basal_tpu_torch.index.seedindex import build_index
+
+    fasta = work / "index_ref.fa"
+    write_fasta(fasta, repeat_genome(np.random.default_rng(SEED + 1),
+                                     INDEX_GENOME, gaps=INDEX_GAPS),
+                n_chrom=3)
+    p = AlignParams(conversion="A:G")
+    t0 = time.perf_counter()
+    ref = load_reference(str(fasta), p)
+    out = {"load_s": time.perf_counter() - t0, "blocks": len(ref.blocks),
+           "positions": db.n_positions(ref, p),
+           "card_bytes": db.card_bytes(ref, p)}
+    fasta.unlink()
+    if db.build_place(ref, p, device) != device:
+        raise AssertionError("the index build does not fit on the card: "
+                             f"{torch.cuda.mem_get_info(device)}")
+    t0 = time.perf_counter()
+    host = build_index(ref, p)
+    out["host_s"] = time.perf_counter() - t0
+    for run in ("cold", "warm"):
+        torch.cuda.reset_peak_memory_stats(device)
+        trace.enable()
+        t0 = time.perf_counter()
+        card = db.device_build(ref, p, device)
+        out[f"card_{run}_s"] = time.perf_counter() - t0
+        spans = trace.snapshot()
+        trace.disable()
+        out[f"spans_{run}"] = {s.name: s.t1 - s.t0 for s in spans}
+        out[f"peak_{run}"] = torch.cuda.max_memory_allocated(device)
+        for f in ("starts", "counts", "n1", "locs"):
+            a, b = getattr(card, f), getattr(host, f)
+            if a.dtype != b.dtype or not np.array_equal(a, b):
+                raise AssertionError(
+                    f"card-built {f} differs from the host's "
+                    f"({a.dtype} / {b.dtype}, {a.size} / {b.size})")
+        if card.max_kmer_num != host.max_kmer_num:
+            raise AssertionError(f"max_kmer_num {card.max_kmer_num} / "
+                                 f"{host.max_kmer_num}")
+        del card
+    out["entries"] = int(host.locs.size)
+    return out
 
 
 def synthetic_reference(device, genome=GENOME):
@@ -1357,6 +1455,18 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_",
                                      dir=ROOT / "build") as tmp:
         work = Path(tmp)
+        # phase 1b: the seed index on the host and on the card
+        index = index_build_check(work, device)
+        log(f"seed index of {INDEX_GENOME} bp ({index['blocks']} blocks, "
+            f"{index['entries']} entries): host {index['host_s']:.3f} s, "
+            f"card {index['card_cold_s']:.3f} s first, "
+            f"{index['card_warm_s']:.3f} s again; tables equal; card peak "
+            f"{index['peak_cold']} / {index['peak_warm']} B against "
+            f"card_bytes {index['card_bytes']}; reference load "
+            f"{index['load_s']:.3f} s on {smi}")
+        for run in ("cold", "warm"):
+            log(f"card build spans ({run}): " + ", ".join(
+                f"{k} {v:.3f} s" for k, v in index[f"spans_{run}"].items()))
         rng = np.random.default_rng(SEED)
         g = rng.choice(np.frombuffer(NT, np.uint8), size=GENOME)
         fasta = work / "ref.fa"

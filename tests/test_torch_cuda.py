@@ -513,3 +513,60 @@ def test_sharded_context_on_one_card_equals_single(cuda, tmp_path, rule, gap,
     for part in range(3 if gap else 1):
         np.testing.assert_array_equal(got[part], want[part])
         np.testing.assert_array_equal(got[part], on_cpu[part])
+
+
+def _index_equal(got, want):
+    for f in ("starts", "counts", "n1", "locs"):
+        a, b = getattr(got, f), getattr(want, f)
+        assert a.dtype == b.dtype, f
+        assert np.array_equal(a, b), f
+    assert got.max_kmer_num == want.max_kmer_num
+
+
+def test_card_index_equals_host_50mbp(cuda, tmp_path):
+    """The card's seed index of a 50 Mbp repeat genome (two chromosomes,
+    runs of N) equals the host build; the build takes the card path there
+    and its peak card memory stays within ``card_bytes`` and the margin."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    from basal_tpu_torch.config import AlignParams
+    from basal_tpu_torch.index import device_build as db
+    from basal_tpu_torch.index.reference import load_reference
+    from basal_tpu_torch.index.seedindex import build_index
+    g = chip_smoke.repeat_genome(np.random.default_rng(14), 50_000_000,
+                                 gaps=60)
+    chip_smoke.write_fasta(tmp_path / "ref.fa", g, n_chrom=2)
+    p = AlignParams(conversion="A:G")
+    ref = load_reference(str(tmp_path / "ref.fa"), p)
+    assert db.build_place(ref, p, cuda) == cuda
+    torch.cuda.reset_peak_memory_stats(cuda)
+    got = db.device_build(ref, p, cuda)
+    peak = torch.cuda.max_memory_allocated(cuda)
+    print(f"card peak during the build: {peak} B; card_bytes "
+          f"{db.card_bytes(ref, p)} B; {got.locs.size} entries")
+    assert peak <= db.card_bytes(ref, p) + db.MARGIN
+    _index_equal(got, build_index(ref, p))
+
+
+@pytest.mark.parametrize("interval,seed", [(1, 12), (4, 12), (4, 16),
+                                           (3, 14), (16, 10)])
+def test_card_index_block_edges(cuda, tmp_path, interval, seed):
+    """Blocks shorter than the seed, exactly one seed long, off the
+    interval's grid, repeating a position; the card's kernels against the
+    host build and their plain version on the CPU."""
+    from basal_tpu_torch.config import AlignParams
+    from basal_tpu_torch.index import device_build as db
+    from basal_tpu_torch.index.reference import Block, load_reference
+    from basal_tpu_torch.index.seedindex import build_index
+    _tiny_data(tmp_path, "A:G")
+    p = AlignParams(conversion="A:G", seed_size=seed,
+                    index_interval=interval)
+    ref = load_reference(str(tmp_path / "ref.fa"), p)
+    ref.blocks = [Block(0, 0, 5), Block(0, 7, 19), Block(0, 30, 42),
+                  Block(0, 43, 56), Block(0, 61, 3000), Block(0, 3001, 3050),
+                  Block(1, 2, 13), Block(1, 15, 4000)]
+    got = db.device_build(ref, p, cuda)
+    _index_equal(got, build_index(ref, p))
+    _index_equal(got, db.device_build(ref, p, "cpu"))
