@@ -5,7 +5,9 @@ out not correct.
 
 It replaces ``TorchDeviceContext.extend_async`` / ``fetch`` for one run:
 each wave is evaluated by ``reference.extend`` on the run's device, from
-the benchmark's own genome and reads.
+the benchmark's own genome and reads; a gapped wave by
+``reference.extend_gap``, whose position lists it hands on as they are
+(the counts alone go to 4 bits).
 """
 
 from __future__ import annotations
@@ -38,22 +40,29 @@ def install(root, cell, paths, seed, params):
     cls = pipeline.TorchDeviceContext
     saved = (cls.extend_async, cls.fetch)
 
+    gap = params.gap
+    empty = [np.zeros(0, np.int32)] + (
+        [np.zeros((0, ref.K_POS), np.int32),
+         np.zeros((0, 2 * gap, ref.K_POS), np.int32)] if gap else [])
+
     def extend_async(self, enc, loc, plane, row):
         row = np.asarray(row).astype(np.int64)
         ids = _read_ids(enc, row)
-        outs = [np.zeros(0, np.int32)]
+        outs = [empty]
         for a in range(0, row.size, 1 << 18):
             s = slice(a, a + (1 << 18))
-            rr = ref.chains(reads[ids[s]], lens[ids[s]], row[s] & 1)
-            got = ref.extend(rule, genome,
-                             torch.from_numpy(np.asarray(loc[s], np.int64)),
-                             torch.from_numpy(np.asarray(plane[s], np.int64)),
-                             torch.from_numpy(rr),
-                             torch.from_numpy(lens[ids[s]]),
-                             n_mis=params.n_mis)
-            outs.append(got.cpu().numpy())
-        counts = np.minimum(np.concatenate(outs), top)
-        return [("control", (counts, None, None))]
+            args = (rule, genome,
+                    torch.from_numpy(np.asarray(loc[s], np.int64)),
+                    torch.from_numpy(np.asarray(plane[s], np.int64)),
+                    torch.from_numpy(ref.chains(reads[ids[s]], lens[ids[s]],
+                                                row[s] & 1)),
+                    torch.from_numpy(lens[ids[s]]))
+            got = (ref.extend_gap(*args, gap, n_mis=params.n_mis) if gap
+                   else (ref.extend(*args, n_mis=params.n_mis),))
+            outs.append([g.cpu().numpy() for g in got])
+        res = [np.concatenate(parts) for parts in zip(*outs)]
+        res[0] = np.minimum(res[0], top)
+        return [("control", tuple(res) if gap else (res[0], None, None))]
 
     def fetch(self, waves):
         if not waves:

@@ -8,7 +8,9 @@ its ``TorchThreadedRunner``).  The benchmark's wrappers, installed on the
 program's classes that the entry names, for the run and removed after it,
 record spans and counters, keep a sample of each device wave's inputs and
 outputs and of the SAM records, and stop the reader once the window has
-passed.
+passed.  A ``--trace 1`` run also turns on the program's own span recorder
+(``basal_tpu_torch.trace``) for the run and keeps its spans on
+``Run.program``.
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ class Run:
     window_s: Optional[float] = None
     roofline: dict = field(default_factory=dict)  # kernel -> (least, took)
     breakdown: Optional[dict] = None
+    program: Optional[list] = None  # traced: the program's own spans
 
     def delta(self, name: str) -> float:
         a, b = self.counters[name]
@@ -115,14 +118,17 @@ class Recorder:
         self.aligners = {}          # id -> aligner
         self.pending = {}           # id(waves) -> sampled candidates
         self.sampled = []           # sampled candidates with outputs
-        self.calls = []             # traced: (t, loc, plane, row, len, waves)
+        # traced: (t, loc, plane, row, len, waves, gap) of each call
+        self.calls = []
         self.lines = []             # (batch write k, SAM record line)
         self._lock = threading.Lock()
 
     def counters(self, launches) -> dict:
+        """The device contexts' counters and every numeric key of the
+        aligners' ``stage`` dicts, each summed over them."""
         ctx = list(self.contexts.values())
         al = list(self.aligners.values())
-        return dict(
+        out = dict(
             down_bytes=sum(c.down_bytes for c in ctx),
             up_waves=sum(c.up_waves for c in ctx),
             stalls=sum(c.stalls for c in ctx),
@@ -130,6 +136,11 @@ class Recorder:
             cand_host=sum(a.stage["cand_host"] for a in al),
             cand_visit=sum(a.stage["cand_visit"] for a in al),
             launches=launches())
+        keys = {k for a in al for k, v in a.stage.items()
+                if isinstance(v, (int, float))}
+        for k in sorted(keys - set(out)):
+            out[k] = sum(a.stage.get(k, 0) for a in al)
+        return out
 
     def extend_async(self, orig):
         rec = self
@@ -147,7 +158,7 @@ class Recorder:
                                           np.array(plane, np.uint8),
                                           np.array(rows, np.int32),
                                           np.array(enc.map_len, np.int32),
-                                          len(waves)))
+                                          len(waves), self.params.gap))
             return waves
         return extend_async
 
@@ -205,9 +216,11 @@ class Recorder:
 def run_cell(root: Path, name: str, seed: int, seconds: float,
              trace: bool, device: str = "cuda", sizes: Optional[dict] = None,
              control=None) -> dict:
-    """One run of cell ``name``.  ``sizes`` overrides configuration keys
-    (``config``), the cell's parameters (``cell``) and the program's
-    parameters (``params``), for tests at a size a CPU holds;
+    """One run of cell ``name``.  A cell's ``batch_reads`` sets the
+    program's batch size (BASAL's 50,000 reads without it).  ``sizes``
+    overrides configuration keys (``config``), the cell's parameters
+    (``cell``) and the program's parameters (``params``), for tests at a
+    size a CPU holds;
     ``control(root, cell, paths, seed, params)`` may put something in the
     program's place for the run and returns how to take it out.  Raises
     NoDevice without the cards.  Returns the result line's object."""
@@ -238,6 +251,8 @@ def run_cell(root: Path, name: str, seed: int, seconds: float,
     argv = list(cfg["flags"]) + ["-a", paths["reads"], "-d", paths["fasta"]]
     opts, flags = cli.parse_args(argv)
     params = cli.params_from_args(argv, opts, flags)
+    if "batch_reads" in prm:
+        params.batch_reads = int(prm["batch_reads"])
     for k, v in (sizes or {}).get("params", {}).items():
         setattr(params, k, v)
     undo_control = (control(root, cell, paths, seed, params)
@@ -289,11 +304,19 @@ def run_cell(root: Path, name: str, seed: int, seconds: float,
     patch(classes["reader"], "next_batch", reader.wrap, undo,
           spans.missing, "next_batch")
     timings = {}
+    program = None
+    if trace:                 # the program's own span recorder, for the run
+        from basal_tpu_torch import trace as recorder
+        recorder.enable()
     try:
         entry.run(params, paths["fasta"], paths["reads"], sink, timings,
                   device)
         events = session.stop() if session is not None else None
+        if trace:
+            program = recorder.snapshot()
     finally:
+        if trace:
+            recorder.disable()
         unpatch(undo)
         if undo_control is not None:
             undo_control()
@@ -310,7 +333,7 @@ def run_cell(root: Path, name: str, seed: int, seconds: float,
     win = window(sink.writes, sink.warmup, seconds)
     run = Run(cell, seconds, sink.t_open - t_setup, rss_gib, timings, win,
               spans, {k: (counters["open"][k], counters["close"][k])
-                      for k in counters["open"]})
+                      for k in counters["open"]}, program=program)
     if events is not None:
         _device_metrics(run, events, rec, cfg["kernel"])
     end = rec.counters(launches)
@@ -398,11 +421,11 @@ def _device_metrics(run: Run, events, rec: Recorder, kname: str) -> None:
     durs = events.kernels(kname)
     calls = [c for c in rec.calls if a <= c[0] <= b]
     launched = sum(c[5] for c in calls)
-    if durs and launched:
+    work = roofline.WORK.get(kname)
+    if durs and launched and work is not None:
         least = 0.0
-        for _, loc, plane, row, map_len, _n in calls:
-            nb, ops = roofline.wave_work(loc, plane, row,
-                                         map_len[row >> 1])
+        for _, loc, plane, row, map_len, _n, gap in calls:
+            nb, ops = work(loc, plane, row, map_len[row >> 1], gap)
             least += roofline.least_seconds(nb, ops)
         took = sum(durs) / len(durs) * launched
         run.roofline[kname] = (least, took)
@@ -448,17 +471,30 @@ def record_numbers(why: dict, limits: dict) -> dict:
     return nums
 
 
+def _named_read(line: bytes) -> Optional[int]:
+    """The read number in a SAM record's name ``r<number>``, or None."""
+    name = line.split(b"\t", 1)[0]
+    return int(name[1:]) if name[:1] == b"r" and name[1:].isdigit() else None
+
+
 def compare(paths, cell, params, seed, rec: Recorder, reader: Reader,
             device: str):
     """(wrong, checked) of the sampled wave outputs against the plain
-    reference, and the sampled SAM records counted by verdict."""
+    reference, every output of a gapped wave (counts and both position
+    lists) entry by entry, and the sampled SAM records counted by verdict.
+    The reads are made again only in the blocks that the samples name."""
     import torch
 
     from . import reference as ref
     refd = data.load_ref(Path(paths["ref_dir"]))
-    rd = data.make_reads(refd, cell.mix, cell.config["reads"],
-                         int(cell.params["reads"]), seed)
-    reads, lens = rd.chars, rd.lens
+    n_pool = int(cell.params["reads"])
+    named = [s["read"] for s in rec.sampled] + [np.array(
+        [i for i in map(_named_read, (ln for _, ln in rec.lines))
+         if i is not None and 0 <= i < n_pool], np.int64)]
+    chunks = set((np.unique(np.concatenate(named)) // data.CHUNK).tolist())
+    rd = data.make_reads(refd, cell.mix, cell.config["reads"], n_pool, seed,
+                         chunks=chunks)
+    reads, lens, spans = rd.chars, rd.lens, rd.span
     rule = ref.Rule(params.conversion, nt3=params.nt3)
     genome = ref.Genome(refd.chars, refd.seqs, torch.device(device))
     wrong_k = checked_k = 0
@@ -467,30 +503,41 @@ def compare(paths, cell, params, seed, rec: Recorder, reader: Reader,
         for a in range(0, s["idx"].size, block):
             sl = slice(a, a + block)
             r = s["read"][sl]
-            rr = ref.chains(reads[r], lens[r], s["chain"][sl])
-            got = ref.extend(rule, genome, torch.from_numpy(s["loc"][sl]),
-                             torch.from_numpy(s["plane"][sl]),
-                             torch.from_numpy(rr), torch.from_numpy(lens[r]),
-                             n_mis=params.n_mis)
-            ok = got.cpu().numpy() == s["out"][0][sl]
-            wrong_k += int((~ok).sum())
-            checked_k += int(ok.size)
+            args = (rule, genome, torch.from_numpy(s["loc"][sl]),
+                    torch.from_numpy(s["plane"][sl]),
+                    torch.from_numpy(ref.chains(reads[r], lens[r],
+                                                s["chain"][sl])),
+                    torch.from_numpy(lens[r]))
+            got = (ref.extend_gap(*args, params.gap, n_mis=params.n_mis)
+                   if params.gap else
+                   (ref.extend(*args, n_mis=params.n_mis),))
+            for want, out in zip(got, s["out"]):
+                ok = want.cpu().numpy() == out[sl]
+                wrong_k += int((~ok).sum())
+                checked_k += int(ok.size)
     L = reads.shape[1]
     limit = ref.mismatch_limit(params.max_snp_num, L)
     seg = refd.unique
 
     def origin(i: int) -> ref.Origin:
-        x = int(rd.start[i])
+        x, span = int(rd.start[i]), int(spans[i])
         k = int(np.searchsorted(seg[:, 0], x, side="right")) - 1
-        unique = k >= 0 and x + L <= seg[k, 1]
-        return ref.Origin(x, bool(rd.minus[i]), bool(unique))
+        unique = k >= 0 and x + span <= seg[k, 1]
+        pieces = (0,)
+        if rd.dels is not None:          # deleted bases in forward order
+            gone = [int(v) for d, v in rd.dels[i] if d >= 0]
+            pieces = tuple(np.cumsum([0] + (gone[::-1] if rd.minus[i]
+                                             else gone)).tolist())
+        return ref.Origin(x, bool(rd.minus[i]), bool(unique), span, pieces)
 
     why = {}
     shown = 0
     for k, line in rec.lines:
         _, n, index0 = reader.batches[k]
         v = ref.check_record(line, rule, refd, reads, origin, limit,
-                             params.out_ref, params.n_mis)
+                             params.out_ref, params.n_mis, params.gap,
+                             params.gap_edge,
+                             (params.seed_size, params.index_interval))
         if v is None:
             i = int(line.split(b"\t", 1)[0][1:])
             if not index0 <= i < index0 + n:

@@ -12,6 +12,14 @@ Frozen copies, rewritten for numpy in bulk (no code of the program or of
   6c33d98: conversions and substitutions, and one N in a share of the
   reads.
 
+A rule whose read side is ``-`` (BID-seq's ``T:-``) is a deletion
+chemistry: a share ``site_share`` of the genome's ``frm`` bases on each
+strand are sites, drawn once from the genome's seed (a hash of the
+position, so no genome-sized table is made); a read that covers a site
+loses that base with p ``rate`` and is filled back to ``read_len`` from
+the bases that follow in its window.  Each read's deletions are recorded
+(``Reads.dels``).  Substitutions and Ns follow as for a conversion.
+
 Where a read starts is the mix's ``source``: ``benchmark/sources/<source>.py``
 with ``starts(rng, ref, mix, n, span)``, found by name, so a new kind of
 traffic is a new file and a new mix of a known kind a data file alone.
@@ -112,12 +120,14 @@ def write_fasta(f, name: str, seq: np.ndarray) -> None:
 @dataclass
 class Ref:
     """A reference as the benchmark holds it: its sequences' characters
-    end to end, each sequence's (start, length) in them, their names, and
-    its unique segments ([start, end) in ``chars``)."""
+    end to end, each sequence's (start, length) in them, their names, its
+    unique segments ([start, end) in ``chars``) and the seed it was made
+    from (which places a deletion chemistry's sites)."""
     chars: np.ndarray
     seqs: np.ndarray
     names: list
     unique: Optional[np.ndarray] = None
+    seed: Optional[int] = None
 
     @cached_property
     def index(self) -> dict:
@@ -137,9 +147,12 @@ def _save_ref(d: Path, ref: Ref) -> None:
 
 def load_ref(d: Path) -> Ref:
     u = d / "unique.npy"
+    done = d / "done"
+    seed = (json.loads(done.read_text()).get("seed") if done.exists()
+            else None)
     return Ref(np.fromfile(d / "ref.seq", np.uint8), np.load(d / "seqs.npy"),
                json.loads((d / "names.json").read_text()),
-               np.load(u) if u.exists() else None)
+               np.load(u) if u.exists() else None, seed)
 
 
 def ensure_reference(cache: Path, genome: dict) -> Path:
@@ -202,41 +215,132 @@ def add_ns(rng, reads: np.ndarray, length: int, frac: float) -> None:
 
 
 CHUNK = 1 << 18   # reads converted per block
+DEL_PAD = 8       # bases a deletion read's window holds past read_len
+
+
+def site_draw(seed: int, key: np.ndarray) -> np.ndarray:
+    """A uniform number in [0, 1) for each key, fixed by the seed
+    (splitmix64 of seed and key): the same key draws the same number in
+    every read set."""
+    z = np.asarray(key, np.int64).astype(np.uint64)
+    z = z + np.uint64((int(seed) * 0x9E3779B97F4A7C15) % (1 << 64))
+    z = (z ^ (z >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+    z = (z ^ (z >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+    z = z ^ (z >> np.uint64(31))
+    return (z >> np.uint64(11)).astype(np.float64) / float(1 << 53)
 
 
 @dataclass
 class Reads:
-    """n reads: their characters [n, L], each read's window start in
-    ``Ref.chars`` and whether it was read from the minus strand."""
+    """n reads: their characters [n, L], the first base in ``Ref.chars``
+    of the genome span each was read from (on the forward strand), and
+    whether it was read from the minus strand.  Under a deletion chemistry
+    ``dels`` [n, DEL_PAD, 2] holds each read's deletions, in order, as
+    (read offset, length) in the read's own 5'-to-3' frame, padded with
+    (-1, 0): offset d, length k means the read's first d bases precede k
+    deleted genome bases."""
     chars: np.ndarray
     start: np.ndarray
     minus: np.ndarray
+    dels: Optional[np.ndarray] = None
 
     @property
     def lens(self) -> np.ndarray:
         return np.full(len(self.chars), self.chars.shape[1], np.int64)
 
+    @property
+    def span(self) -> np.ndarray:
+        """Genome bases each read's span covers: its length and its
+        deleted bases."""
+        if self.dels is None:
+            return self.lens
+        return self.lens + self.dels[:, :, 1].sum(1)
 
-def make_reads(ref: Ref, mix: dict, chem: dict, n: int, seed: int) -> Reads:
+
+def delete(rng, win: np.ndarray, first: np.ndarray, minus: np.ndarray,
+           frm: str, chem: dict, seed: int, L: int):
+    """Deletion chemistry on windows ``win`` [m, L + DEL_PAD] in the reads'
+    own frame (minus-strand windows already reverse-complemented) that
+    start at ``first`` on the forward strand: a site is a ``frm`` base
+    whose draw from the genome's ``seed`` (keyed by position and strand)
+    is under ``site_share``; each site a read covers is deleted with p
+    ``rate`` and the read is filled back to L from the window.  A window's
+    first base is never deleted (a read begins at a base it holds).
+    Returns (reads [m, L], forward first base of each read's span,
+    deletions [m, DEL_PAD, 2])."""
+    m, S = win.shape
+    lose = (win == ord(frm)) & (rng.random(win.shape, np.float32)
+                                < chem["rate"])
+    lose[:, 0] = False
+    rows, cols = np.nonzero(lose)
+    fwd = np.where(minus[rows], first[rows] + (S - 1 - cols),
+                   first[rows] + cols)
+    hit = site_draw(seed, 2 * fwd + minus[rows]) < chem["site_share"]
+    reads = np.ascontiguousarray(win[:, :L])
+    used = np.full(m, L)
+    dels = np.zeros((m, DEL_PAD, 2), np.int16)
+    dels[:, :, 0] = -1
+    some = np.unique(rows[hit])                  # the reads that lose bases
+    if some.size:
+        gone = np.zeros((some.size, S), bool)
+        gone[np.searchsorted(some, rows[hit]), cols[hit]] = True
+        gone &= np.cumsum(gone, axis=1) <= S - L     # L bases always remain
+        take = np.argsort(gone, axis=1, kind="stable")[:, :L]
+        reads[some] = np.take_along_axis(win[some], take, axis=1)
+        used[some] = take[:, -1] + 1             # window bases consumed
+        j = np.arange(S)
+        gone &= j[None, :] < used[some][:, None]
+        kept_before = j[None, :] - (np.cumsum(gone, axis=1) - gone)
+        r, c = np.nonzero(gone)
+        key = r.astype(np.int64) * (S + 1) + kept_before[r, c]
+        runs, length = np.unique(key, return_counts=True)
+        r = runs // (S + 1)
+        rank = np.arange(r.size) - np.searchsorted(r, r)
+        dels[some[r], rank, 0] = runs % (S + 1)
+        dels[some[r], rank, 1] = length
+    start = np.where(minus, first + S - used, first)
+    return reads, start, dels
+
+
+def make_reads(ref: Ref, mix: dict, chem: dict, n: int, seed: int,
+               chunks=None) -> Reads:
     """n reads drawn where the mix's source says and converted as the
     chemistry says (keys: read_len, rule, rate, subst, n_frac,
-    minus_share)."""
+    minus_share; a deletion chemistry also site_share).  Each block of
+    CHUNK reads draws from a generator of its own, so ``chunks``, a set of
+    block numbers, makes those blocks alone: the other rows stay zero (and
+    take no memory until written)."""
     rng = np.random.default_rng([seed, 0])
     L = int(chem["read_len"])
     frm, to = chem["rule"].split(":")
-    starts = source(mix["source"])(rng, ref, mix, n, L)
-    windows = np.lib.stride_tricks.sliding_window_view(ref.chars, L)
-    reads = np.empty((n, L), np.uint8)
-    minus = np.empty(n, bool)
+    pad = DEL_PAD if to == "-" else 0
+    starts = source(mix["source"])(rng, ref, mix, n, L + pad)
+    windows = np.lib.stride_tricks.sliding_window_view(ref.chars, L + pad)
+    alloc = np.empty if chunks is None else np.zeros
+    reads = alloc((n, L), np.uint8)
+    minus = np.zeros(n, bool)
+    dels = None
+    if pad:
+        if ref.seed is None:
+            raise ValueError("a deletion chemistry needs the genome's seed")
+        dels = alloc((n, DEL_PAD, 2), np.int16)
     for a in range(0, n, CHUNK):
+        if chunks is not None and a // CHUNK not in chunks:
+            continue
         b = min(a + CHUNK, n)
         r = np.random.default_rng([seed, 1, a])
         win = windows[starts[a:b]]
         m = minus[a:b] = r.random(b - a) < chem.get("minus_share", 0.5)
         win[m] = revcomp(win[m])
-        reads[a:b] = convert(r, win, frm, to, chem["rate"], chem["subst"])
+        if pad:
+            got, starts[a:b], dels[a:b] = delete(
+                r, win, starts[a:b], m, frm, chem, ref.seed, L)
+            reads[a:b] = substitute(r, got, chem["subst"])
+        else:
+            reads[a:b] = convert(r, win, frm, to, chem["rate"],
+                                 chem["subst"])
         add_ns(r, reads[a:b], L, chem["n_frac"])
-    return Reads(reads, starts, minus)
+    return Reads(reads, starts, minus, dels)
 
 
 def fastq_block(reads: np.ndarray, first: int) -> bytes:

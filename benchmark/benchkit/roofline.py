@@ -15,8 +15,13 @@ Bytes:
 
 Operations: ``OPS_PER_WORD`` per 16-base word of each alignment, frozen
 from ``chip_smoke.py:119-123`` at commit 6c33d98 (funnel shift, rule,
-masks, lane bits and popcount per word).  The gap kernel's work (its
-position lists, 2 gap more alignments) comes with a gapped cell.
+masks, lane bits and popcount per word).
+
+The gap kernel (``gap_wave_work``) does the same for 1 + 2 gap alignments
+of each candidate (at loc and at loc +- 1 .. gap), reads the reference over
+[loc - gap, loc + L + gap), and writes the outputs of ``basal_tpu``'s
+``_gap_core``: a u8 count, 14 i16 positions of the alignment at loc and 14
+of each shifted one.
 
 Peaks: an H100 SXM's published HBM rate and 32-bit lane rate at 700 W.
 """
@@ -65,6 +70,41 @@ def wave_work(loc, plane, row, row_len):
     nbytes += C
     ops = int(words.sum()) * OPS_PER_WORD
     return nbytes, ops
+
+
+POS_BYTES = 2 * 14     # K_POS int16 positions of one alignment
+
+
+def gap_wave_work(loc, plane, row, row_len, gap: int):
+    """(bytes, operations) of one call of the gap kernel with ``gap``: the
+    count kernel's bytes with each candidate's reference words over [loc -
+    gap, loc + L + gap), its outputs at their original widths (1 B + 2 x
+    14 B + 2 gap x 2 x 14 B per candidate), and OPS_PER_WORD per word of
+    each of the 1 + 2 gap alignments.  Choosing the first 14 mismatch
+    positions of each alignment is left out of the operations, so the time
+    this allows is a lower bound."""
+    loc = np.asarray(loc, np.int64)
+    C = loc.size
+    if C == 0:
+        return 0, 0
+    row = np.asarray(row)
+    row_len = np.asarray(row_len, np.int64)
+    words = -(-row_len // WORD)
+    _, first = np.unique(row, return_index=True)
+    nbytes = 4 * C + 4 * int(words[first].sum())
+    nbytes += 4 * distinct_words(loc - gap, plane, row_len + 2 * gap)
+    nbytes += C * (1 + POS_BYTES + 2 * gap * POS_BYTES)
+    ops = (1 + 2 * gap) * int(words.sum()) * OPS_PER_WORD
+    return nbytes, ops
+
+
+def _count_work(loc, plane, row, row_len, gap: int):
+    return wave_work(loc, plane, row, row_len)
+
+
+#: a configuration's ``kernel`` -> its work, (loc, plane, row, row_len,
+#: gap) -> (bytes, operations)
+WORK = {"count_blob_kernel": _count_work, "gap_blob_kernel": gap_wave_work}
 
 
 def least_seconds(nbytes: float, ops: float) -> float:

@@ -14,9 +14,11 @@ longest idle gaps of the card are given by the leaf spans that cover them.
 With ``--trace 0`` the run's ``reads_per_s`` against an ordinary run's on
 the same seed is what the recorder costs when on.
 
-The harness keeps no snapshot of the program's spans (``core.Run`` has no
-field for it), so this script catches the run's ``Run`` and the card's
-idle gaps as the harness makes them, in its own process only.
+A ``--trace 1`` run of the harness keeps the program's spans on
+``Run.program`` itself; a ``--trace 0`` run does not touch the recorder,
+so this script turns it on around the run.  It catches the run's ``Run``
+and the card's idle gaps as the harness makes them, in its own process
+only.
 """
 
 from __future__ import annotations
@@ -53,7 +55,8 @@ def run(root, cell: str, seed: int, seconds: float, traced: bool,
     trace.enable()
     try:
         res = core.run_cell(root, cell, seed, seconds, traced, **kw)
-        runs[-1].program = trace.snapshot()
+        if runs[-1].program is None:
+            runs[-1].program = trace.snapshot()
     finally:
         trace.disable()
         core.Run, btrace.gaps = make_run, gaps

@@ -162,3 +162,35 @@ def test_program_report_on_a_cpu_run(bench_root, monkeypatch):
         theirs = rep["wrappers"][name + "_batch"]
         assert ours == pytest.approx(theirs, rel=0.05)
     assert "idle_gaps_by_leaf" in rep
+
+
+def test_run_keeps_the_programs_spans_only_when_traced(bench_root,
+                                                      monkeypatch):
+    from basal_tpu_torch import trace
+    from basal_tpu_torch.align.aligner import SingleEndAligner
+    runs, make_run = [], core.Run
+
+    def catch_run(*a, **k):
+        runs.append(make_run(*a, **k))
+        return runs[-1]
+    monkeypatch.setattr(core, "Run", catch_run)
+    monkeypatch.setattr(SingleEndAligner, "EAGER_MAX_CANDS", 1)
+    outs = [core.run_cell(bench_root, "glori_se100.mrna", 2 ** 31 + 21, 1.0,
+                          traced, device="cpu", sizes=SIZES)
+            for traced in (False, True)]
+    untraced, traced = runs
+    assert untraced.program is None and not trace.enabled()
+    assert traced.program and {s.name for s in traced.program} >= {
+        "aligner.submit", "runner.queue", "devctx.blob", "aligner.ladder"}
+    # every numeric stage key of the aligners is a counter
+    for run in runs:
+        assert run.delta("emit_python_reads") + run.delta(
+            "emit_native_reads") == run.win.reads
+        assert run.delta("ladder_batches") > 0
+    assert all(o["correct"] for o in outs)
+    m = outs[1]["metrics"]
+    for name in ("sam.python_reads_pct", "aligner.ladder_self_us_per_read",
+                 "devctx.blob_us_per_read", "runner.queue_ms"):
+        assert m[name]["value"] >= 0, name
+    assert m["sam.python_reads_pct"]["value"] == 100.0
+    assert "runner.queue_ms" not in outs[0]["metrics"]
